@@ -1,0 +1,27 @@
+"""onepiece_tpu_torch — the PyTorch + CUDA port of onepiece_tpu.
+
+Mirrors the JAX package's layout (`onepiece_tpu/ops/tsdf.py` <->
+`onepiece_tpu_torch/ops/tsdf.py`) and never imports jax or the JAX package;
+the numpy-only helpers it needs are copied. Tensors carry their device:
+every kernelled function runs its hand-written CUDA kernel
+(`csrc/*.cu`, built by `_build.py`) on a CUDA tensor and its plain PyTorch
+version on a CPU tensor. There is no fallback from one to the other.
+
+Layout (the first slice: the dense fusion loop `systems/fused_slam.py`):
+  geometry/     SE(3) math, pinhole camera
+  ops/          image ops, dense normal equations (kernel), TSDF keys and
+                pool integration (kernel)
+  odometry/     frame pyramids + multi-scale dense tracking
+  integration/  device block hash, TSDFVolume container
+  systems/      FusedDenseFusion
+  io/           ATE / RPE
+  utils/        synthetic SDF renderer with exact ground-truth poses
+"""
+
+import torch
+
+# Geometry (SE3 chains, 6x6 normal equations) must run float32 matmuls in
+# full float32: TF32 keeps ~3 decimal digits. Counterpart of the JAX
+# package's `jax_default_matmul_precision = "highest"`.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False

@@ -1,0 +1,89 @@
+"""SE(3) / SO(3) Lie-group math on torch tensors, batched-first.
+
+Port of `onepiece_tpu/geometry/se3.py`. Twist convention ``xi = (rho, phi)``
+(translation first), ``exp(xi) = [exp(phi_x) | V(phi) rho]``. Every function
+keeps its input's dtype (float32 or float64) and device.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_EPS = 1e-8
+
+
+def skew(v: torch.Tensor) -> torch.Tensor:
+    """Skew-symmetric matrix [v]_x: (..., 3) -> (..., 3, 3)."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    zero = torch.zeros_like(x)
+    return torch.stack(
+        [
+            torch.stack([zero, -z, y], dim=-1),
+            torch.stack([z, zero, -x], dim=-1),
+            torch.stack([-y, x, zero], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def _eye3_like(K: torch.Tensor) -> torch.Tensor:
+    return torch.eye(3, dtype=K.dtype, device=K.device).expand(K.shape)
+
+
+def so3_exp(phi: torch.Tensor) -> torch.Tensor:
+    """Rodrigues: axis-angle (..., 3) -> rotation (..., 3, 3), Taylor-guarded."""
+    theta2 = torch.sum(phi * phi, dim=-1)
+    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    use_taylor = theta2 < 1e-8
+    a = torch.where(use_taylor, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    b = torch.where(
+        use_taylor, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / (theta2 + _EPS * _EPS)
+    )
+    K = skew(phi)
+    return _eye3_like(K) + a[..., None, None] * K + b[..., None, None] * (K @ K)
+
+
+def _so3_left_jacobian(phi: torch.Tensor) -> torch.Tensor:
+    """V(phi), the SO(3) left Jacobian used by se3_exp: (..., 3) -> (..., 3, 3)."""
+    theta2 = torch.sum(phi * phi, dim=-1)
+    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    use_taylor = theta2 < 1e-8
+    b = torch.where(
+        use_taylor, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / (theta2 + _EPS * _EPS)
+    )
+    c = torch.where(
+        use_taylor,
+        1.0 / 6.0 - theta2 / 120.0,
+        (theta - torch.sin(theta)) / (theta2 * theta + _EPS * _EPS * _EPS),
+    )
+    K = skew(phi)
+    return _eye3_like(K) + b[..., None, None] * K + c[..., None, None] * (K @ K)
+
+
+def make_T(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Assemble (..., 4, 4) from (..., 3, 3) and (..., 3)."""
+    batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
+    top = torch.cat([R.expand(batch + (3, 3)), t.expand(batch + (3,))[..., None]], dim=-1)
+    # the [0, 0, 0, 1] row made on the device: writing a Python scalar into
+    # a CUDA tensor element would copy from the host and wait for it
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3:].expand(batch + (1, 4))
+    return torch.cat([top, bottom], dim=-2)
+
+
+def se3_exp(xi: torch.Tensor) -> torch.Tensor:
+    """Twist (..., 6) [rho, phi] -> homogeneous transform (..., 4, 4)."""
+    rho, phi = xi[..., :3], xi[..., 3:]
+    R = so3_exp(phi)
+    t = (_so3_left_jacobian(phi) @ rho[..., None])[..., 0]
+    return make_T(R, t)
+
+
+def inverse_T(T: torch.Tensor) -> torch.Tensor:
+    """Closed-form SE(3) inverse: [R^T | -R^T t]."""
+    Rt = T[..., :3, :3].transpose(-1, -2)
+    return make_T(Rt, -(Rt @ T[..., :3, 3, None])[..., 0])
+
+
+def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply (..., 4, 4) to (..., N, 3) -> (..., N, 3)."""
+    return pts @ T[..., :3, :3].transpose(-1, -2) + T[..., None, :3, 3]

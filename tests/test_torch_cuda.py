@@ -1,0 +1,130 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked `cuda`: a CUDA kernel has no CPU or interpret mode, so these skip on
+a machine without a CUDA device. Run them on the card with
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
+
+(`tests/conftest.py` imports JAX, which the card's machine does not have.)
+
+Tolerances: TSDF weights equal, sdf and colour <= 1e-5; normal equations
+relative 1e-4 of the largest entry, inlier count equal. The kernels are
+built without implicit FMA contraction (the TSDF transform's FMAs are
+explicit, and its plain version makes the same ones), so per-element
+arithmetic rounds as the plain versions' does and only the order of the
+normal equations' sums differs.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from onepiece_tpu_torch import _build
+from onepiece_tpu_torch.geometry import se3
+from onepiece_tpu_torch.geometry.camera import TUM_CAMERA
+from onepiece_tpu_torch.integration import device_hash as dh
+from onepiece_tpu_torch.odometry import dense
+from onepiece_tpu_torch.ops import dense_odometry as dops
+from onepiece_tpu_torch.ops import tsdf as tsdf_ops
+from onepiece_tpu_torch.ops import tsdf_slots
+from onepiece_tpu_torch.systems.fused_slam import FusedDenseFusion
+from onepiece_tpu_torch.utils import synthetic
+
+pytestmark = pytest.mark.cuda
+
+CAM = TUM_CAMERA.pyramid(3)[2]  # 160x120
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    _build.library()
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def frames(dev):
+    poses = synthetic.orbit_trajectory(16)[:4]
+    scene = synthetic.default_scene(dev)
+    out = [synthetic.render(scene, torch.from_numpy(p).to(dev), CAM.fx, CAM.fy, CAM.cx, CAM.cy,
+                            CAM.height, CAM.width, num_steps=64) for p in poses]
+    return poses, torch.stack([g for _, g in out]), torch.stack([d for d, _ in out])
+
+
+def test_tsdf_integrate_kernel_matches_plain(dev, frames):
+    poses, grays, depths = frames
+    T_w = torch.from_numpy(np.linalg.inv(poses[0]) @ poses[2]).to(dev)
+    keys = tsdf_ops.touched_block_keys(depths[2], T_w, CAM.fx, CAM.fy, CAM.cx, CAM.cy, 0.0125, 0.1,
+                                       max_blocks=2048, stride=2)
+    table, slots = dh.insert(dh.make_table(1 << 13, 4096, dev), keys, claim_rounds=12)
+    slots = torch.where(slots < 0, 4096, slots).to(torch.int32)
+    slots[:2] = torch.tensor([-3, 4097 + 5])  # outside the pool: both versions skip them
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    pool = tsdf_slots.make_pool(4096, dev)
+    pool[:, 1] = torch.randint(0, 3, (4097, 512), generator=gen).float().to(dev)
+    pool[:, 0] = torch.rand((4097, 512), generator=gen).to(dev) * 2 - 1
+    pool[:, 2:5] = torch.rand((4097, 3, 512), generator=gen).to(dev)
+    args = (keys, slots, torch.stack([depths[2], grays[2]]), se3.inverse_T(T_w),
+            CAM.fx, CAM.fy, CAM.cx, CAM.cy, 0.0125, 0.1)
+    before = _build.TSDF_INTEGRATE.launches
+    vk = tsdf_slots.integrate_slots(pool.clone(), *args)
+    vp = tsdf_slots.integrate_slots_reference(pool.clone(), *args)
+    torch.cuda.synchronize()
+    assert _build.TSDF_INTEGRATE.launches == before + 1
+    assert torch.equal(vk[:4096, 1], vp[:4096, 1])
+    assert int((vk[:4096, 1] != pool[:4096, 1]).sum()) > 10000
+    assert float((vk[:4096] - vp[:4096]).abs().max()) <= 1e-5
+    assert torch.equal(vk[4096], pool[4096])  # padding keys leave the trash row alone
+
+
+def test_normal_eq_kernel_matches_plain(dev, frames):
+    _, grays, depths = frames
+    src = dense.preprocess_frame(grays[0], depths[0], CAM)
+    tgt = dense.preprocess_frame(grays[1], depths[1], CAM)
+    T = se3.se3_exp(torch.tensor([0.004, -0.003, 0.006, 0.004, -0.006, 0.003], device=dev))
+    for li, c in enumerate(CAM.pyramid(3)):
+        pts = src.xyzs[li].reshape(-1, 3)
+        args = (T, pts, src.grays[li].reshape(-1), pts[:, 2] > 0,
+                dops.build_term_data(tgt.grays[li], tgt.depths[li], dense.SOBEL_SCALE),
+                c.fx, c.fy, c.cx, c.cy, 0.5, 0.05)
+        nk = dops.normal_equations(*args)
+        npl = dops.normal_equations_reference(*args)
+        assert float(nk.num_inliers) == float(npl.num_inliers) > 100
+        for a, b in zip(nk[:3], npl[:3]):
+            assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+        assert torch.allclose(nk.JTJ, nk.JTJ.T)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(dev, frames):
+    _, grays, depths = frames
+    pool = tsdf_slots.make_pool(8, dev)
+    keys = torch.full((4,), tsdf_ops.INVALID_KEY, dtype=torch.int32, device=dev)
+    img = torch.stack([depths[0], grays[0]])
+    T = torch.eye(4, device=dev)
+    intr = (CAM.fx, CAM.fy, CAM.cx, CAM.cy, 0.0125, 0.1)
+    with pytest.raises(ValueError, match="dtype"):
+        tsdf_slots.integrate_slots(pool, keys, keys.long(), img, T, *intr)
+    with pytest.raises(ValueError, match="contiguous"):
+        tsdf_slots.integrate_slots(pool, keys, keys, img, T.T, *intr)
+    with pytest.raises(ValueError, match="on cpu"):
+        tsdf_slots.integrate_slots(pool, keys, keys, img.cpu(), T, *intr)
+
+
+def test_slice_on_the_card_matches_cpu(dev, frames):
+    poses, grays, depths = frames
+    cam = TUM_CAMERA.pyramid(4)[3]
+    kw = dict(capacity=2048, table_size=1 << 12, kmax=512, stride=2)
+    g = torch.nn.functional.avg_pool2d(grays[:, None], 2)[:, 0]
+    d = torch.nn.functional.avg_pool2d(depths[:, None], 2)[:, 0]
+    _build.reset_launch_counts()
+    on_card = FusedDenseFusion(cam, device=dev, **kw)
+    on_card.process_chunk(g, d)
+    est_card, _ = on_card.finalize()
+    assert {k.name: k.launches for k in _build.KERNELS} == {
+        "tsdf_integrate": 4, "dense_normal_eq": 3 * sum(on_card.iters)}
+    on_cpu = FusedDenseFusion(cam, device="cpu", **kw)
+    on_cpu.process_chunk(g.cpu(), d.cpu())
+    est_cpu, _ = on_cpu.finalize()
+    assert np.abs(est_card - est_cpu).max() <= 1e-4
+    assert abs(on_card.num_active - on_cpu.num_active) <= 0.01 * on_cpu.num_active
