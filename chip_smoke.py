@@ -15,16 +15,29 @@ Phases, in order; any failure exits non-zero before the final `ok` line:
      kernels' launch counts and the absence of host syncs in the frame loop
      are checked, and ms per frame is timed over 5 fresh runs after one
      warm run
-Prints one JSON line of per-kernel results, the card line, then
-{"ok": true, "device": {...}} as the last line.
+  6. DenseSlam on 150 frames of the 640x480 `loop_trajectory` (three
+     submaps): a warm run records the first nn1 inputs of each ICP call
+     (the submap clouds at the ICP's initial pose); the nn1 kernel is held
+     against its plain version there and at 32768 x 32768: indices equal,
+     d2 bit-equal
+  7. the DenseSlam slice again with the launch counts at 0: ATE, finite
+     poses, icp_ok on every submap after the first, nn1 launches = 31 x ICP
+     calls, no TSDF launch; host syncs counted per frame, per submap and
+     inside each ICP call; ms per frame over 3 runs and ms per
+     _finish_submap
+Prints one JSON line of per-kernel results (launches: the counted runs of
+phases 5 and 7 together), the card line, then {"ok": true, "device": {...}}
+as the last line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -35,6 +48,10 @@ KERNEL1_TOL = 1e-5  # sdf and colour, absolute; weights must be equal
 KERNEL2_TOL = 1e-4  # JTJ, JTr, cost: max |kernel - plain| / max |plain|
 MAX_ATE_M = 2.0e-3
 TIMED_RUNS = 5
+SLAM_FRAMES = 150  # three submaps of 50 frames
+SLAM_TIMED_RUNS = 3
+MAX_SLAM_ATE_M = 1.0e-2
+NN1_BIG = 32768
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -54,6 +71,88 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+@contextlib.contextmanager
+def patched(obj, name: str, wrap):
+    """Replace obj.name by wrap(obj.name) while the block runs."""
+    orig = getattr(obj, name)
+    setattr(obj, name, wrap(orig))
+    try:
+        yield
+    finally:
+        setattr(obj, name, orig)
+
+
+class SyncCounter:
+    """Counts synchronizing CUDA operations (sync debug mode "warn")."""
+
+    def __enter__(self) -> "SyncCounter":
+        self._catch = warnings.catch_warnings(record=True)
+        self._caught = self._catch.__enter__()
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+        return self._catch.__exit__(*exc)
+
+    @property
+    def count(self) -> int:
+        return sum("called a synchronizing CUDA operation" in str(w.message) for w in self._caught)
+
+    def counting(self, fn, out: list):
+        """fn, appending to `out` the syncs made inside each call."""
+
+        def wrapped(*args, **kwargs):
+            n = self.count
+            res = fn(*args, **kwargs)
+            out.append(self.count - n)
+            return res
+
+        return wrapped
+
+
+def recording_icp_inputs(point_to_point, out: list):
+    """point_to_point, appending each call's first nn1 inputs to `out`."""
+
+    def wrapped(src, src_valid, tgt, tgt_valid, init_T, **kwargs):
+        out.append((src @ init_T[:3, :3].T + init_T[:3, 3], tgt, tgt_valid))
+        return point_to_point(src, src_valid, tgt, tgt_valid, init_T=init_T, **kwargs)
+
+    return wrapped
+
+
+def run_slam(cam, dev, grays, depths, wrap_finish=None):
+    """One DenseSlam run over the frames: (slam, ms per frame, ms per
+    _finish_submap). With `wrap_finish` (the sync-counted run) nothing is
+    timed, so the run makes no synchronizing call of its own."""
+    from onepiece_tpu_torch.systems.dense_slam import DenseSlam
+
+    slam = DenseSlam(cam, dev)
+    finish_ms = []
+    if wrap_finish is not None:
+        slam._finish_submap = wrap_finish(slam._finish_submap)
+    else:
+        finish = slam._finish_submap
+
+        def timed_finish(sm_idx):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = finish(sm_idx)
+            torch.cuda.synchronize()
+            finish_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        slam._finish_submap = timed_finish
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    for g, d in zip(grays, depths):
+        slam.update_frame(g, d)
+    if wrap_finish is None:
+        torch.cuda.synchronize()
+    return slam, (time.perf_counter() - t) * 1e3 / len(grays), finish_ms
 
 
 def main() -> int:
@@ -184,7 +283,7 @@ def main() -> int:
     _build.reset_launch_counts()
     slam, est, _ = run(forbid_syncs=True)
     launches = {k.name: k.launches for k in _build.KERNELS}
-    expect = {"tsdf_integrate": N_FRAMES, "dense_normal_eq": sum(slam.iters) * (N_FRAMES - 1)}
+    expect = {"tsdf_integrate": N_FRAMES, "dense_normal_eq": sum(slam.iters) * (N_FRAMES - 1), "nn1": 0}
     if launches != expect:
         raise AssertionError(f"kernel launches on the main path {launches}, expected {expect}")
     ate = traj.ate_rmse(est, poses)
@@ -204,10 +303,94 @@ def main() -> int:
     print(f"slice ms/frame over {TIMED_RUNS} fresh runs: median {np.median(times):.3f}, "
           f"p95 {np.percentile(times, 95):.3f} (runs {[round(t, 3) for t in times]}) on {card}",
           flush=True)
+    del slam, vol, frames, depths, grays
+
+    # ---- 6. DenseSlam warm run; nn1 vs plain at its ICP shapes ------------
+    from onepiece_tpu_torch.ops import nn1 as nn1_ops
+    from onepiece_tpu_torch.registration import icp
+
+    slam_gt = synthetic.loop_trajectory(SLAM_FRAMES)
+    t0 = time.perf_counter()
+    rendered = [
+        synthetic.render(scene, torch.from_numpy(p).to(dev), cam.fx, cam.fy, cam.cx, cam.cy,
+                         cam.height, cam.width, num_steps=RENDER_STEPS)
+        for p in slam_gt
+    ]
+    s_depths = torch.stack([d for d, _ in rendered])
+    s_grays = torch.stack([g for _, g in rendered])
+    del rendered
+    torch.cuda.synchronize()
+    print(f"rendered {SLAM_FRAMES} frames of loop_trajectory at 640x480 in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    icp_inputs = []  # (query at the ICP's initial pose, target, target valid) per ICP call
+    with patched(icp, "point_to_point", lambda f: recording_icp_inputs(f, icp_inputs)):
+        run_slam(cam, dev, s_grays, s_depths)  # warm: kernels, allocator, cuBLAS / cuSOLVER handles
+    if not icp_inputs:
+        raise AssertionError("the DenseSlam run made no ICP call")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    big = (torch.randn((NN1_BIG, 3), generator=gen, device=dev),
+           torch.randn((NN1_BIG, 3), generator=gen, device=dev),
+           torch.rand(NN1_BIG, generator=gen, device=dev) > 0.2)
+    cases = [(f"ICP call {i}", *c) for i, c in enumerate(icp_inputs)]
+    cases.append((f"{NN1_BIG} x {NN1_BIG}, 20 % invalid", *big))
+    err3 = 0.0
+    for i, (name, q, r, v) in enumerate(cases):
+        ik, dk = nn1_ops.nn1(q, r, v)
+        ip, dp = nn1_ops.nn1_reference(q, r, v)
+        torch.cuda.synchronize()
+        err3 = max(err3, float((dk - dp).abs().max()))
+        if not (torch.equal(ik, ip) and torch.equal(dk, dp)):
+            raise AssertionError(f"nn1 {name}: kernel and plain version differ ({int((ik != ip).sum())} "
+                                 f"indices, max d2 err {float((dk - dp).abs().max())})")
+        line = (f"nn1 {name}: query {tuple(q.shape)}, ref {tuple(r.shape)} ({int(v.sum())} valid): "
+                f"indices equal, d2 bit-equal")
+        if i in (0, len(cases) - 1):  # the slice's shape (submap 1 against submap 0), and the largest
+            ms = cuda_ms(lambda: nn1_ops.nn1(q, r, v))
+            plain_ms = cuda_ms(lambda: nn1_ops.nn1_reference(q, r, v), reps=5)
+            line += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            if i == 0:
+                results["nn1"] = dict(ms=ms, plain_ms=plain_ms)
+        print(line, flush=True)
+    results["nn1"]["max_abs_err"] = err3
+    del cases, icp_inputs, big, ik, dk, ip, dp
+
+    # ---- 7. the DenseSlam slice -------------------------------------------
+    icp_syncs, finish_syncs = [], []
+    _build.reset_launch_counts()
+    with SyncCounter() as sc, patched(icp, "point_to_point", lambda f: sc.counting(f, icp_syncs)):
+        slam = run_slam(cam, dev, s_grays, s_depths, wrap_finish=lambda f: sc.counting(f, finish_syncs))[0]
+    slam_launches = {k.name: k.launches for k in _build.KERNELS}
+    n_icp = len(icp_syncs)
+    expect = {"tsdf_integrate": 0, "dense_normal_eq": sum(dense.DEFAULT_ITERS) * (SLAM_FRAMES - 1),
+              "nn1": (icp.DEFAULT_ITERS + 1) * n_icp}
+    if slam_launches != expect:
+        raise AssertionError(f"DenseSlam kernel launches {slam_launches}, expected {expect} ({n_icp} ICP calls)")
+    est = slam.trajectory()
+    ate = traj.ate_rmse(est, slam_gt)
+    if not (np.isfinite(est).all() and ate <= MAX_SLAM_ATE_M):
+        raise AssertionError(f"DenseSlam ATE {ate} m > {MAX_SLAM_ATE_M} m (or non-finite poses)")
+    flags = [m["icp_ok"] for m in slam.metrics if "icp_ok" in m]
+    if not (len(flags) == SLAM_FRAMES // slam.submap_size and all(flags[1:])):
+        raise AssertionError(f"DenseSlam icp_ok per submap {flags}")
+    loops = [(e["src"], e["dst"]) for e in slam.edges if e["src"] - e["dst"] > 1]
+    frame_syncs = (sc.count - sum(finish_syncs)) / SLAM_FRAMES
+    runs = [run_slam(cam, dev, s_grays, s_depths) for _ in range(SLAM_TIMED_RUNS)]
+    ms_frame = [r[1] for r in runs]
+    finish_ms = [m for r in runs for m in r[2]]
+    print(f"DenseSlam 640x480 x {SLAM_FRAMES} frames of loop_trajectory: ATE {ate * 1e3:.4f} mm, "
+          f"icp_ok {flags}, submap points {[int(c.count()) for c in slam.submap_clouds]} "
+          f"(capacities {[c.capacity for c in slam.submap_clouds]}), loop edges {loops}, "
+          f"edges {len(slam.edges)}, ICP calls {n_icp}, launches {slam_launches}", flush=True)
+    print(f"DenseSlam host syncs: {frame_syncs:.2f} per frame, per _finish_submap {finish_syncs}, "
+          f"inside each ICP call {icp_syncs}", flush=True)
+    print(f"DenseSlam ms/frame over {SLAM_TIMED_RUNS} runs after a warm run: median {np.median(ms_frame):.3f} "
+          f"(runs {[round(t, 3) for t in ms_frame]}); ms per _finish_submap: median "
+          f"{np.median(finish_ms):.3f} (all {[round(t, 1) for t in finish_ms]}) on {card}", flush=True)
 
     kernels = [
         dict(name=k.name, route="cuda", source=k.source, replaces=k.replaces,
-             launches=launches[k.name], **results[k.name])
+             launches=launches[k.name] + slam_launches[k.name], **results[k.name])
         for k in _build.KERNELS
     ]
     print(json.dumps({"kernels": kernels}))

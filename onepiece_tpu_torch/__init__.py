@@ -7,15 +7,20 @@ every kernelled function runs its hand-written CUDA kernel
 (`csrc/*.cu`, built by `_build.py`) on a CUDA tensor and its plain PyTorch
 version on a CPU tensor. There is no fallback from one to the other.
 
-Layout (the first slice: the dense fusion loop `systems/fused_slam.py`):
-  geometry/     SE(3) math, pinhole camera
-  ops/          image ops, dense normal equations (kernel), TSDF keys and
-                pool integration (kernel)
-  odometry/     frame pyramids + multi-scale dense tracking
-  integration/  device block hash, TSDFVolume container
-  systems/      FusedDenseFusion
-  io/           ATE / RPE
-  utils/        synthetic SDF renderer with exact ground-truth poses
+Layout (the slices so far: the dense fusion loop `systems/fused_slam.py`
+and DenseSlam `systems/dense_slam.py`):
+  geometry/      SE(3) math, pinhole camera, Kabsch and normal fitting,
+                 fixed-capacity point clouds
+  ops/           image ops, dense normal equations (kernel), TSDF keys and
+                 pool integration (kernel), brute-force kNN, exact 1-NN
+                 (kernel), batched RANSAC
+  odometry/      frame pyramids + multi-scale dense tracking
+  integration/   device block hash, TSDFVolume container
+  registration/  ICP, FPFH, global (feature + RANSAC) registration
+  optimization/  pose-graph Gauss-Newton
+  systems/       FusedDenseFusion, DenseSlam
+  io/            ATE / RPE
+  utils/         synthetic SDF renderer with exact ground-truth poses
 """
 
 import torch

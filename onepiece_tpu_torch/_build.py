@@ -1,8 +1,8 @@
 """Build and load the hand-written CUDA kernels of `csrc/`.
 
-All `csrc/*.cu` files compile with `nvcc` for Hopper (`sm_90a`) into ONE
-shared library with a plain C interface, loaded with `ctypes` (no PyTorch
-headers, so a build takes seconds). The library lands in `build/kernels/`
+All `csrc/*.cu` files compile with `nvcc` for Hopper (`sm_90a`), in
+parallel, into ONE shared library with a plain C interface, loaded with
+`ctypes` (no PyTorch headers, so a build takes seconds). The library lands in `build/kernels/`
 at the repository root, named by a hash of the sources and flags, so an
 edited kernel rebuilds and an unchanged one loads at once.
 
@@ -38,7 +38,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 # exactly.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "--fmad=false",
 )
 
@@ -63,7 +63,12 @@ DENSE_NORMAL_EQ = Kernel(
     "onepiece_tpu_torch/csrc/dense_normal_eq.cu",
     "onepiece_tpu/ops/dense_odometry.py:80",
 )
-KERNELS = (TSDF_INTEGRATE, DENSE_NORMAL_EQ)
+NN1 = Kernel(
+    "nn1",
+    "onepiece_tpu_torch/csrc/nn1.cu",
+    "onepiece_tpu/ops/knn_pallas.py:69",
+)
+KERNELS = (TSDF_INTEGRATE, DENSE_NORMAL_EQ, NN1)
 
 
 def reset_launch_counts() -> None:
@@ -93,20 +98,40 @@ def library_path() -> Path:
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile `csrc/*.cu` into the shared library unless it is already there."""
+    """Compile `csrc/*.cu` into the shared library unless it is already
+    there: one nvcc per source, all started together, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else [])]
-    cmd += ["-o", str(tmp), *map(str, _sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose:
-        print(res.stderr, end="")
-    os.replace(tmp, out)
+    objs = [tmp.with_suffix(f".{src.stem}.o") for src in _sources()]
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        for src, obj in zip(_sources(), objs)
+    ]
+    try:
+        for src, proc in zip(_sources(), procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{err}")
+            if verbose:
+                print(err, end="")
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)], capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for proc in procs:  # a failed source leaves no compiler running
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
 
 
@@ -121,6 +146,8 @@ _SIGNATURES = {
     "dense_normal_eq": [
         _VP, _VP, _VP, _I, _VP, _I, _I, _VP, _F, _F, _F, _F, _F, _F, _F, _VP, _I, _VP, _VP,
     ],
+    # query, ref, ref_valid, N, M, out_idx, out_d2, stream
+    "nn1": [_VP, _VP, _VP, _I, _I, _VP, _VP, _VP],
 }
 
 _lib: ctypes.CDLL | None = None

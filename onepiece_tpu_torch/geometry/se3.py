@@ -87,3 +87,8 @@ def inverse_T(T: torch.Tensor) -> torch.Tensor:
 def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """Apply (..., 4, 4) to (..., N, 3) -> (..., N, 3)."""
     return pts @ T[..., :3, :3].transpose(-1, -2) + T[..., None, :3, 3]
+
+
+def transform_normals(T: torch.Tensor, normals: torch.Tensor) -> torch.Tensor:
+    """Rotate normals (..., N, 3) by the rotation part of T (rigid, so R^-T = R)."""
+    return normals @ T[..., :3, :3].transpose(-1, -2)

@@ -1,0 +1,101 @@
+"""RANSAC with all hypotheses at once: rigid 3D-3D alignment and the
+pairwise-consistency filter (RanSaPC).
+
+Port of `onepiece_tpu/ops/ransac.py` (`_sample_indices`, `ransac_rigid`,
+`ransapc_filter`). Every hypothesis is drawn up front (Gumbel top-k from an
+explicit `torch.Generator`), scored with one batched transform and the best
+one is refit; nothing depends on the data to decide what runs next.
+
+Sampling is split from scoring: `sample_indices` draws, and the scoring
+functions take `samples=` to use given indices instead (the tests feed the
+JAX package's draws in: the two RNGs give different numbers).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..geometry import transforms
+
+RANSAPC_ANCHORS = 8  # anchors a correspondence is checked against
+RANSAPC_MIN_VOTES = 5  # consistent anchors a correspondence needs
+
+
+class RansacResult(NamedTuple):
+    T: torch.Tensor  # (4, 4) best rigid transform
+    inliers: torch.Tensor  # (N,) bool
+    num_inliers: torch.Tensor  # () int64
+    rmse: torch.Tensor  # () inlier rmse
+
+
+def sample_indices(
+    generator: torch.Generator, valid: torch.Tensor, num_hyp: int, sample_size: int
+) -> torch.Tensor:
+    """(H, S) int64 indices of valid entries, without replacement within a
+    hypothesis: the top S of Gumbel noise, with invalid entries at -inf."""
+    u = torch.rand((num_hyp, valid.shape[0]), generator=generator, device=valid.device)
+    g = -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(torch.float32).tiny)))
+    logits = torch.where(valid, 0.0, -torch.inf)
+    return torch.topk(logits[None, :] + g, sample_size, dim=-1).indices
+
+
+def ransac_rigid(
+    generator: torch.Generator | None,
+    src: torch.Tensor,  # (N, 3)
+    dst: torch.Tensor,  # (N, 3)
+    valid: torch.Tensor,  # (N,) bool
+    threshold: float,
+    num_hypotheses: int,
+    sample_size: int,
+    samples: torch.Tensor | None = None,  # (H, S) indices instead of drawing
+) -> RansacResult:
+    """Rigid RANSAC: a quaternion-Kabsch fit per sampled hypothesis, inliers
+    within `threshold`, the best hypothesis refit on its inliers with the
+    SVD Kabsch (kept only if it loses no inliers)."""
+    if samples is None:
+        samples = sample_indices(generator, valid, num_hypotheses, sample_size)
+    # squared in float32, as the JAX package squares its traced threshold
+    thr2 = float(np.float32(threshold) * np.float32(threshold))
+    Ts = transforms.kabsch_fast(src[samples], dst[samples])  # (H, 4, 4)
+    pred = torch.einsum("hij,nj->hni", Ts[:, :3, :3], src) + Ts[:, None, :3, 3]
+    d2 = torch.sum((pred - dst[None]) ** 2, dim=-1)  # (H, N)
+    inl = (d2 < thr2) & valid[None, :]
+    counts = torch.sum(inl, dim=-1)
+    best = torch.argmax(counts)
+    best_inl = inl[best]
+    T_refit = transforms.kabsch(src, dst, best_inl.to(torch.float32))
+    d2_r = torch.sum((src @ T_refit[:3, :3].T + T_refit[:3, 3] - dst) ** 2, dim=-1)
+    inl_r = (d2_r < thr2) & valid
+    better = torch.sum(inl_r) >= counts[best]
+    T_out = torch.where(better, T_refit, Ts[best])
+    inl_out = torch.where(better, inl_r, best_inl)
+    nin = torch.sum(inl_out)
+    d2_out = torch.where(better, d2_r, d2[best])
+    rmse = torch.sqrt(
+        torch.sum(torch.where(inl_out, d2_out, 0.0)) / torch.clamp(nin.to(torch.float32), min=1.0)
+    )
+    return RansacResult(T_out, inl_out, nin, rmse)
+
+
+def ransapc_filter(
+    generator: torch.Generator | None,
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    valid: torch.Tensor,
+    tolerance: float,
+    samples: torch.Tensor | None = None,  # (A,) anchor indices instead of drawing
+) -> torch.Tensor:
+    """Pairwise-consistency filter: rigid motion keeps distances, so a
+    correspondence votes for an anchor when | |src_i - src_a| - |dst_i -
+    dst_a| | < tolerance. Returns the mask of valid correspondences with at
+    least RANSAPC_MIN_VOTES votes from valid anchors."""
+    if samples is None:
+        samples = sample_indices(generator, valid, 1, RANSAPC_ANCHORS)[0]
+    ds = torch.linalg.norm(src[:, None, :] - src[samples][None], dim=-1)  # (N, A)
+    dd = torch.linalg.norm(dst[:, None, :] - dst[samples][None], dim=-1)
+    consistent = torch.abs(ds - dd) < tolerance
+    votes = torch.sum(consistent & valid[samples][None, :], dim=-1)
+    return valid & (votes >= RANSAPC_MIN_VOTES)

@@ -8,7 +8,8 @@ a machine without a CUDA device. Run them on the card with
 (`tests/conftest.py` imports JAX, which the card's machine does not have.)
 
 Tolerances: TSDF weights equal, sdf and colour <= 1e-5; normal equations
-relative 1e-4 of the largest entry, inlier count equal. The kernels are
+relative 1e-4 of the largest entry, inlier count equal; nn1 indices equal
+and squared distances bit-equal (same expression, same order). The kernels are
 built without implicit FMA contraction (the TSDF transform's FMAs are
 explicit, and its plain version makes the same ones), so per-element
 arithmetic rounds as the plain versions' does and only the order of the
@@ -24,9 +25,13 @@ from onepiece_tpu_torch.geometry import se3
 from onepiece_tpu_torch.geometry.camera import TUM_CAMERA
 from onepiece_tpu_torch.integration import device_hash as dh
 from onepiece_tpu_torch.odometry import dense
+from onepiece_tpu_torch.io import trajectory as traj
 from onepiece_tpu_torch.ops import dense_odometry as dops
+from onepiece_tpu_torch.ops import nn1 as nn1_ops
 from onepiece_tpu_torch.ops import tsdf as tsdf_ops
 from onepiece_tpu_torch.ops import tsdf_slots
+from onepiece_tpu_torch.registration import icp
+from onepiece_tpu_torch.systems.dense_slam import DenseSlam
 from onepiece_tpu_torch.systems.fused_slam import FusedDenseFusion
 from onepiece_tpu_torch.utils import synthetic
 
@@ -122,9 +127,93 @@ def test_slice_on_the_card_matches_cpu(dev, frames):
     on_card.process_chunk(g, d)
     est_card, _ = on_card.finalize()
     assert {k.name: k.launches for k in _build.KERNELS} == {
-        "tsdf_integrate": 4, "dense_normal_eq": 3 * sum(on_card.iters)}
+        "tsdf_integrate": 4, "dense_normal_eq": 3 * sum(on_card.iters), "nn1": 0}
     on_cpu = FusedDenseFusion(cam, device="cpu", **kw)
     on_cpu.process_chunk(g.cpu(), d.cpu())
     est_cpu, _ = on_cpu.finalize()
     assert np.abs(est_card - est_cpu).max() <= 1e-4
     assert abs(on_card.num_active - on_cpu.num_active) <= 0.01 * on_cpu.num_active
+
+
+def _nn1_inputs(case, dev):
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    n, m = {"ragged": (1000, 2100), "small_ref": (777, 5), "invalid": (3000, 4500),
+            "all_invalid": (300, 700), "ties": (640, 1920), "large": (32768, 32768)}[case]
+    q = torch.randn((n, 3), generator=gen)
+    r = torch.randn((m, 3), generator=gen)
+    v = torch.ones(m, dtype=torch.bool)
+    if case == "invalid":
+        v = torch.rand(m, generator=gen) > 0.2
+    elif case == "all_invalid":
+        v[:] = False
+    elif case == "ties":  # three copies of each point: the lowest valid index wins
+        r = r[:640].repeat(3, 1)
+        v[:100] = False
+        q = r[:640] + torch.randn((640, 3), generator=gen) * 1e-3
+    return q.to(dev), r.to(dev), v.to(dev)
+
+
+@pytest.mark.parametrize("case", ["ragged", "small_ref", "invalid", "all_invalid", "ties", "large"])
+def test_nn1_kernel_matches_plain(dev, case):
+    q, r, v = _nn1_inputs(case, dev)
+    before = _build.NN1.launches
+    ik, dk = nn1_ops.nn1(q, r, v)
+    ip, dp = nn1_ops.nn1_reference(q, r, v)
+    torch.cuda.synchronize()
+    assert _build.NN1.launches == before + 1
+    assert ik.dtype == torch.int32 and dk.dtype == torch.float32
+    assert torch.equal(ik, ip) and torch.equal(dk, dp)
+    if case == "all_invalid":
+        assert bool((ik == 0).all()) and bool((dk == 1e30).all())
+    else:
+        assert bool(v[ik.long()].all())
+    if case == "ties":
+        assert bool((ik[:100] >= 640).all()) and bool((ik[100:] < 640).all())
+
+
+def test_nn1_rejects_what_the_kernel_does_not_take(dev):
+    q, r, v = _nn1_inputs("ragged", dev)
+    with pytest.raises(ValueError, match="dtype"):
+        nn1_ops.nn1(q.double(), r, v)
+    with pytest.raises(ValueError, match="shape"):
+        nn1_ops.nn1(q[:, :2].contiguous(), r, v)
+    with pytest.raises(ValueError, match="on cpu"):
+        nn1_ops.nn1(q, r.cpu(), v)
+
+
+def test_dense_slam_on_the_card(dev):
+    """DenseSlam at 160x120, 12 frames in submaps of 4: every ICP iteration
+    (and the final scoring pass) launches the nn1 kernel once; the card's
+    run keeps the CPU run's decisions and poses."""
+    poses = synthetic.orbit_trajectory(12)
+    scene = synthetic.default_scene(dev)
+    out = [synthetic.render(scene, torch.from_numpy(p).to(dev), CAM.fx, CAM.fy, CAM.cx, CAM.cy,
+                            CAM.height, CAM.width, num_steps=64) for p in poses]
+    depths, grays = torch.stack([d for d, _ in out]), torch.stack([g for _, g in out])
+    icp_calls = []
+    point_to_point = icp.point_to_point
+
+    def counted(*args, **kwargs):
+        icp_calls.append(1)
+        return point_to_point(*args, **kwargs)
+
+    icp.point_to_point = counted
+    try:
+        _build.reset_launch_counts()
+        on_card = DenseSlam(CAM, dev, submap_size=4)
+        for g, d in zip(grays, depths):
+            on_card.update_frame(g, d)
+    finally:
+        icp.point_to_point = point_to_point
+    launches = {k.name: k.launches for k in _build.KERNELS}
+    assert len(icp_calls) >= 2
+    assert launches == {"tsdf_integrate": 0, "dense_normal_eq": 11 * sum(dense.DEFAULT_ITERS),
+                        "nn1": (icp.DEFAULT_ITERS + 1) * len(icp_calls)}
+    on_cpu = DenseSlam(CAM, "cpu", submap_size=4)
+    for g, d in zip(grays.cpu(), depths.cpu()):
+        on_cpu.update_frame(g, d)
+    flags = [[m["icp_ok"] for m in s.metrics if "icp_ok" in m] for s in (on_card, on_cpu)]
+    assert flags[0] == flags[1] == [False, True, True]
+    assert len(on_card.edges) == len(on_cpu.edges)
+    assert np.abs(on_card.trajectory() - on_cpu.trajectory()).max() <= 1e-3
+    assert traj.ate_rmse(on_card.trajectory(), poses) <= 0.01

@@ -1,5 +1,7 @@
-"""`tools/profile_torch_slice.py` runs end to end at a tiny size on the CPU
-and reports every stage of the frame step (device numbers are null there)."""
+"""The profiling tools run end to end at a tiny size on the CPU:
+`tools/profile_torch_slice.py` reports every stage of the fused frame step,
+`tools/profile_torch_dense_slam.py` every layer of DenseSlam (device
+numbers are null there)."""
 
 import json
 import sys
@@ -21,4 +23,22 @@ def test_profile_tool_reports_every_stage_on_cpu(capsys):
     assert all(ms > 0 for ms in out["stage_ms_per_frame"].values())
     assert set(out["gn_iteration_ms"]) == {"normal_equations", "solve_and_update"}
     assert out["host_sync_sites_in_process_chunk"] is None
+    assert out["profile"]["wall_ms"] > 0 and out["profile"]["device_busy_ms"] is None
+
+
+def test_dense_slam_profile_tool_reports_every_layer_on_cpu(capsys):
+    import profile_torch_dense_slam
+
+    assert profile_torch_dense_slam.main(
+        ["--device", "cpu", "--level", "3", "--frames", "6", "--submap-size", "2",
+         "--render-steps", "24"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["size"] == "80x60" and out["device"] == "cpu" and out["frames"] == 6
+    layers = out["layers"]
+    assert list(layers["ms"]) == list(profile_torch_dense_slam.LAYERS) + ["rest of update_frame"]
+    # three submaps: two ICP calls (1 -> 0, 2 -> 1), one RANSAC attempt (2 -> 0)
+    assert layers["calls"]["ICP"] >= 2 and layers["calls"]["RANSAC"] == 1
+    assert layers["calls"]["normals + FPFH"] == 3
+    assert all(ms > 0 for name, ms in layers["ms"].items() if name != "rest of update_frame")
+    assert out["host_sync_sites"] is None
     assert out["profile"]["wall_ms"] > 0 and out["profile"]["device_busy_ms"] is None

@@ -120,18 +120,17 @@ def gn_iteration_times(slam, grays, depths, reps: int = 20) -> dict[str, float]:
     return {"normal_equations": float(np.mean(ne_ms)), "solve_and_update": float(np.mean(su_ms))}
 
 
-def count_syncs(make, grays, depths) -> dict[str, int] | None:
-    """Synchronizing operations in one process_chunk, by the Python line
-    that made them (None off CUDA)."""
-    slam = make()
-    if slam.device.type != "cuda":
+def count_syncs(dev: torch.device, work) -> dict[str, int] | None:
+    """Synchronizing operations in work(), by the Python line that made
+    them (None off CUDA)."""
+    if dev.type != "cuda":
         return None
-    _sync(slam.device)
+    _sync(dev)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            slam.process_chunk(grays, depths)
+            work()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     sites: dict[str, int] = {}
@@ -210,6 +209,7 @@ def main(argv=None) -> int:
     warm = make()  # allocator, kernel library, solver handles
     warm.process_chunk(grays, depths)
     warm.finalize()
+    slam = make()
 
     out = {
         "size": f"{cam.width}x{cam.height}",
@@ -217,7 +217,7 @@ def main(argv=None) -> int:
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
         "stage_ms_per_frame": stage_times(make(), grays, depths),
         "gn_iteration_ms": gn_iteration_times(make(), grays, depths),
-        "host_sync_sites_in_process_chunk": count_syncs(make, grays, depths),
+        "host_sync_sites_in_process_chunk": count_syncs(dev, lambda: slam.process_chunk(grays, depths)),
         "profile": profile_run(make, grays, depths),
     }
     stages = out["stage_ms_per_frame"]
