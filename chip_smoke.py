@@ -8,8 +8,11 @@ Phases, in order; any failure exits non-zero before the final `ok` line:
   2. build the CUDA kernels of onepiece_tpu_torch/csrc/ with nvcc (sm_90a)
   3. TSDF-integrate kernel vs its plain PyTorch version on a real 640x480
      frame (K = 8192 touched slots, a 16385-row pool)
-  4. dense normal-equations kernel vs its plain version at 640x480,
-     320x240 and 160x120
+  4. dense Gauss-Newton kernel vs its plain versions at 640x480, 320x240
+     and 160x120: the normal equations alone (update off), then one step
+     (normal equations, 6x6 solve, gate, se3_exp update in one launch)
+     from the same T: inliers equal, T within 1e-5; one step and a whole
+     level's `iters` launches timed with CUDA events
   5. the slice: FusedDenseFusion on the 16-frame 640x480 orbit
      (process_chunk -> finalize -> to_volume); ATE, block overflow, the
      kernels' launch counts and the absence of host syncs in the frame loop
@@ -26,8 +29,13 @@ Phases, in order; any failure exits non-zero before the final `ok` line:
      inside each ICP call; ms per frame over 3 runs and ms per
      _finish_submap
 Prints one JSON line of per-kernel results (launches: the counted runs of
-phases 5 and 7 together), the card line, then {"ok": true, "device": {...}}
-as the last line.
+phases 5 and 7 together; ms: the kernels' device time per wrapper call from
+the profiler; event_ms and plain_ms: CUDA events around back-to-back calls
+of the wrapper and of the plain version; bound_ms: the least time the card
+could take for the same work, the larger of bytes over 3.35 TB/s and
+float32 operations over 67 TFLOP/s, the published H100 SXM peaks at 700 W;
+roofline_share = bound_ms / ms), the card line, then
+{"ok": true, "device": {...}} as the last line.
 """
 
 from __future__ import annotations
@@ -46,12 +54,55 @@ N_FRAMES = 16
 RENDER_STEPS = 64
 KERNEL1_TOL = 1e-5  # sdf and colour, absolute; weights must be equal
 KERNEL2_TOL = 1e-4  # JTJ, JTr, cost: max |kernel - plain| / max |plain|
+GN_STEP_TOL = 1e-5  # T after one step: sums in another order, sinf / cosf vs torch's
 MAX_ATE_M = 2.0e-3
 TIMED_RUNS = 5
 SLAM_FRAMES = 150  # three submaps of 50 frames
 SLAM_TIMED_RUNS = 3
 MAX_SLAM_ATE_M = 1.0e-2
 NN1_BIG = 32768
+PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, published
+PEAK_F32_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, published
+# float32 operations per element of the work, counted from the kernels' code
+TSDF_OPS_PER_VOXEL = 30  # voxel centre, rigid transform, projection
+TSDF_OPS_PER_UPDATE = 20  # truncation, weighted averages of sdf and colour
+GN_OPS_PER_PIXEL = 98  # valid source pixel: transform, projection, 6-channel bilinear
+GN_OPS_PER_INLIER = 166  # Jacobian rows, 27 weighted products and sums, cost
+NN1_OPS_PER_PAIR = 8  # 3 sub, 3 mul, 2 add per (query, valid reference)
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time for the work on the card, and what binds it."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_F32_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def device_ms(fn, kernels: tuple[str, ...], calls: int = 20) -> float:
+    """Device time per fn() call in the kernels whose names hold one of
+    `kernels` (each launched once per call): the sum of each kernel's mean
+    duration as the profiler (CUPTI) records it. A mean per kernel stays
+    right when the profiler drops some records. CUDA events around
+    back-to-back calls also count the time the device waits for the host
+    to enqueue the next launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = {k: [] for k in kernels}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for k in kernels:
+                if k in e.name:
+                    us[k].append(e.time_range.elapsed_us())
+    if not all(us.values()):
+        raise AssertionError(f"the profiler recorded no device time of {[k for k, v in us.items() if not v]}")
+    return sum(float(np.mean(v)) for v in us.values()) / 1e3
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -226,15 +277,22 @@ def main() -> int:
     if not err1 <= KERNEL1_TOL:
         raise AssertionError(f"tsdf_integrate: max |sdf/colour err| {err1} > {KERNEL1_TOL}")
     scratch = pool.clone()
-    ms1 = cuda_ms(lambda: tsdf_slots.integrate_slots(scratch, *args))
+    ms1 = device_ms(lambda: tsdf_slots.integrate_slots(scratch, *args), ("tsdf_integrate_kernel",))
+    event_ms1 = cuda_ms(lambda: tsdf_slots.integrate_slots(scratch, *args))
     plain_ms1 = cuda_ms(lambda: tsdf_slots.integrate_slots_reference(scratch, *args))
-    results["tsdf_integrate"] = dict(max_abs_err=err1, ms=ms1, plain_ms=plain_ms1)
-    print(f"tsdf_integrate: K={kmax} ({n_keys} real keys), pool {tuple(pool.shape)}: "
-          f"max abs err {err1:.3g}, weights equal; kernel {ms1:.4f} ms, plain {plain_ms1:.4f} ms",
-          flush=True)
+    # bytes: keys and slots, the image, each updated voxel's 5 channels read
+    # and written; a voxel that does not update is neither read nor written
+    n_upd = int((vp[body, 1] != pool[body, 1]).sum())
+    b1 = bound(8 * kmax + args[2].numel() * 4 + 40 * n_upd,
+               TSDF_OPS_PER_VOXEL * 512 * n_keys + TSDF_OPS_PER_UPDATE * n_upd)
+    results["tsdf_integrate"] = dict(max_abs_err=err1, ms=ms1, event_ms=event_ms1, plain_ms=plain_ms1, **b1)
+    print(f"tsdf_integrate: K={kmax} ({n_keys} real keys, {n_upd} voxels updated), pool "
+          f"{tuple(pool.shape)}: max abs err {err1:.3g}, weights equal; kernel {ms1:.4f} ms on the device "
+          f"({event_ms1:.4f} ms by events), plain {plain_ms1:.4f} ms, bound {b1['bound_ms']:.5f} ms "
+          f"({b1['bound_by']})", flush=True)
     del pool, vk, vp, scratch
 
-    # ---- 4. dense normal equations vs plain -------------------------------
+    # ---- 4. dense Gauss-Newton kernel vs plain ----------------------------
     src = dense.preprocess_frame(grays[0], depths[0], cam)
     tgt = dense.preprocess_frame(grays[1], depths[1], cam)
     eye = torch.eye(4, device=dev)  # the first iteration's pose (rel = I)
@@ -242,8 +300,9 @@ def main() -> int:
     for li, c in enumerate(cam.pyramid(3)):
         term = dops.build_term_data(tgt.grays[li], tgt.depths[li], dense.SOBEL_SCALE)
         pts = src.xyzs[li].reshape(-1, 3)
-        args = (eye, pts, src.grays[li].reshape(-1), pts[:, 2] > 0, term, c.fx, c.fy, c.cx, c.cy,
-                dense.LAMBDA_HYBRID_DEPTH, dense.DEPTH_DIFF_MAX)
+        gray = src.grays[li].reshape(-1)
+        rest = (c.fx, c.fy, c.cx, c.cy, dense.LAMBDA_HYBRID_DEPTH, dense.DEPTH_DIFF_MAX)
+        args = (eye, pts, gray, pts[:, 2] > 0, term, *rest)
         nk = dops.normal_equations(*args)
         npl = dops.normal_equations_reference(*args)
         rel = [rel_err(a, b) for a, b in zip(nk[:3], npl[:3])]
@@ -252,15 +311,36 @@ def main() -> int:
         if float(nk.num_inliers) != float(npl.num_inliers):
             raise AssertionError(
                 f"dense_normal_eq level {li}: inliers {float(nk.num_inliers)} != {float(npl.num_inliers)}")
-        ms = cuda_ms(lambda: dops.normal_equations(*args))
-        plain_ms = cuda_ms(lambda: dops.normal_equations_reference(*args))
+        ne_ms = cuda_ms(lambda: dops.normal_equations(*args))
+        # one whole step from the same T
+        T_k = eye.clone()
+        sk = dops.gauss_newton(T_k, pts, gray, term, *rest, iters=1)
+        T_p, sp = dops.gn_step_reference(*args)
+        dT = float((T_k - T_p).abs().max())
+        if float(sk.num_inliers) != float(sp.num_inliers) or not dT <= GN_STEP_TOL:
+            raise AssertionError(f"dense_normal_eq GN step level {li}: inliers {float(sk.num_inliers)} vs "
+                                 f"{float(sp.num_inliers)}, max |dT| {dT} > {GN_STEP_TOL}")
+        T_w = eye.clone()
+        step_ms = device_ms(lambda: dops.gauss_newton(T_w, pts, gray, term, *rest, iters=1),
+                            ("gn_step_kernel",))
+        step_event_ms = cuda_ms(lambda: dops.gauss_newton(T_w, pts, gray, term, *rest, iters=20), reps=5) / 20
+        n_it = dense.DEFAULT_ITERS[2 - li]
+        level_ms = cuda_ms(lambda: dops.gauss_newton(T_w, pts, gray, term, *rest, iters=n_it), reps=10)
+        plain_ms = cuda_ms(lambda: dops.gn_step_reference(*args))
+        # bytes: x, y, z, gray of every source pixel, six target planes
+        n_valid = int((pts[:, 2] > 0).sum())
+        b2 = bound(pts.shape[0] * 16 + term.texels[..., :6].numel() * 4,
+                   GN_OPS_PER_PIXEL * n_valid + GN_OPS_PER_INLIER * float(sk.num_inliers))
         abs_err = max(float((a - b).abs().max()) for a, b in zip(nk[:3], npl[:3]))
-        print(f"dense_normal_eq {c.width}x{c.height}: rel err JTJ {rel[0]:.3g} JTr {rel[1]:.3g} "
-              f"cost {rel[2]:.3g}, inliers {int(nk.num_inliers)} equal; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-        err2 = max(err2, abs_err)
+        print(f"dense_normal_eq {c.width}x{c.height}: normal equations rel err JTJ {rel[0]:.3g} "
+              f"JTr {rel[1]:.3g} cost {rel[2]:.3g}, inliers {int(nk.num_inliers)} equal, {ne_ms:.4f} ms; "
+              f"GN step max |dT| {dT:.3g}, inliers equal; kernel {step_ms:.4f} ms per step on the device "
+              f"({step_event_ms:.4f} ms by events over 20 steps), {level_ms:.4f} ms per level call of "
+              f"{n_it} steps, plain step {plain_ms:.4f} ms, "
+              f"bound {b2['bound_ms']:.5f} ms ({b2['bound_by']})", flush=True)
+        err2 = max(err2, abs_err, dT)
         if li == 0:
-            results["dense_normal_eq"] = dict(ms=ms, plain_ms=plain_ms)
+            results["dense_normal_eq"] = dict(ms=step_ms, event_ms=step_event_ms, plain_ms=plain_ms, **b2)
     results["dense_normal_eq"]["max_abs_err"] = err2
 
     # ---- 5. the slice -----------------------------------------------------
@@ -346,11 +426,16 @@ def main() -> int:
         line = (f"nn1 {name}: query {tuple(q.shape)}, ref {tuple(r.shape)} ({int(v.sum())} valid): "
                 f"indices equal, d2 bit-equal")
         if i in (0, len(cases) - 1):  # the slice's shape (submap 1 against submap 0), and the largest
-            ms = cuda_ms(lambda: nn1_ops.nn1(q, r, v))
+            ms = device_ms(lambda: nn1_ops.nn1(q, r, v), ("nn1_chunk_kernel", "nn1_merge_kernel"))
+            event_ms = cuda_ms(lambda: nn1_ops.nn1(q, r, v))
             plain_ms = cuda_ms(lambda: nn1_ops.nn1_reference(q, r, v), reps=5)
-            line += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            b3 = bound(q.numel() * 4 + r.numel() * 4 + v.numel() + q.shape[0] * 8,
+                       NN1_OPS_PER_PAIR * q.shape[0] * int(v.sum()))
+            line += (f"; kernel {ms:.4f} ms on the device ({event_ms:.4f} ms by events), plain "
+                     f"{plain_ms:.4f} ms, bound {b3['bound_ms']:.5f} ms ({b3['bound_by']}), roofline share "
+                     f"{b3['bound_ms'] / ms:.3f}")
             if i == 0:
-                results["nn1"] = dict(ms=ms, plain_ms=plain_ms)
+                results["nn1"] = dict(ms=ms, event_ms=event_ms, plain_ms=plain_ms, **b3)
         print(line, flush=True)
     results["nn1"]["max_abs_err"] = err3
     del cases, icp_inputs, big, ik, dk, ip, dp
@@ -388,9 +473,11 @@ def main() -> int:
           f"(runs {[round(t, 3) for t in ms_frame]}); ms per _finish_submap: median "
           f"{np.median(finish_ms):.3f} (all {[round(t, 1) for t in finish_ms]}) on {card}", flush=True)
 
+    # no single PyTorch call computes any of the three functions
     kernels = [
         dict(name=k.name, route="cuda", source=k.source, replaces=k.replaces,
-             launches=launches[k.name] + slam_launches[k.name], **results[k.name])
+             launches=launches[k.name] + slam_launches[k.name], **results[k.name],
+             roofline_share=results[k.name]["bound_ms"] / results[k.name]["ms"], library_ms=None)
         for k in _build.KERNELS
     ]
     print(json.dumps({"kernels": kernels}))

@@ -11,7 +11,7 @@ Layout (the slices so far: the dense fusion loop `systems/fused_slam.py`
 and DenseSlam `systems/dense_slam.py`):
   geometry/      SE(3) math, pinhole camera, Kabsch and normal fitting,
                  fixed-capacity point clouds
-  ops/           image ops, dense normal equations (kernel), TSDF keys and
+  ops/           image ops, dense Gauss-Newton steps (kernel), TSDF keys and
                  pool integration (kernel), brute-force kNN, exact 1-NN
                  (kernel), batched RANSAC
   odometry/      frame pyramids + multi-scale dense tracking

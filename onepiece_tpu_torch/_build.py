@@ -141,13 +141,13 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # vox, keys, slots, K, rows, img, H, W, T_cw, fx, fy, cx, cy, voxel, trunc, max_w, stream
     "tsdf_integrate": [_VP, _VP, _VP, _I, _I, _VP, _I, _I, _VP, _F, _F, _F, _F, _F, _F, _F, _VP],
-    # xyz, gray, valid, N, planes, H, W, T, fx, fy, cx, cy, wi, wz, ddm,
-    # partials, num_blocks, out, stream
-    "dense_normal_eq": [
-        _VP, _VP, _VP, _I, _VP, _I, _I, _VP, _F, _F, _F, _F, _F, _F, _F, _VP, _I, _VP, _VP,
+    # src (N, 4), N, tex (H, W, 8), H, W, T, fx, fy, cx, cy, wi, wz, ddm,
+    # damping, update, iters, partials, partial_rows, counter, out, stream
+    "dense_gn": [
+        _VP, _I, _VP, _I, _I, _VP, _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _VP, _I, _VP, _VP, _VP,
     ],
-    # query, ref, ref_valid, N, M, out_idx, out_d2, stream
-    "nn1": [_VP, _VP, _VP, _I, _I, _VP, _VP, _VP],
+    # query, ref, ref_valid, N, M, out_idx, out_d2, part_d2, part_idx, chunks, stream
+    "nn1": [_VP, _VP, _VP, _I, _I, _VP, _VP, _VP, _VP, _I, _VP],
 }
 
 _lib: ctypes.CDLL | None = None

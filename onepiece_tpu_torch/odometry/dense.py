@@ -2,8 +2,9 @@
 
 Port of `onepiece_tpu/odometry/dense.py` in the gather form of its
 `dense_tracking_exact`: every Gauss-Newton iteration bilinearly samples the
-target at the current pose (one fused kernel on the card,
-`ops/dense_odometry.py`). The JAX package's production tracker pre-warps
+target at the current pose. On the card each iteration is one kernel launch
+that also solves and updates the pose (`ops/dense_odometry.gauss_newton`),
+and one call per pyramid level enqueues all of that level's launches. The JAX package's production tracker pre-warps
 bf16 quad rows and samples with stencils because a TPU gather is slow; a
 GPU gathers natively, so the port keeps the exact form.
 
@@ -100,22 +101,21 @@ def dense_tracking(
     if len(iters) != levels:
         raise ValueError(f"{len(iters)} iteration counts for {levels} levels")
     dev = source.grays[0].device
-    T = torch.eye(4, dtype=torch.float32, device=dev) if init_T is None else init_T
+    # the working pose, updated in place by every step; the caller's init_T
+    # is never written
+    if init_T is None:
+        T = torch.eye(4, dtype=torch.float32, device=dev)
+    else:
+        T = init_T.clone(memory_format=torch.contiguous_format)
     cams = camera.pyramid(levels)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    ne = dops.NormalEquations(torch.zeros((6, 6), device=dev), torch.zeros(6, device=dev), zero, zero)
     for li in reversed(range(levels)):  # coarsest first
         tgt = dops.build_term_data(target.grays[li], target.depths[li], SOBEL_SCALE)
-        src_pts = source.xyzs[li].reshape(-1, 3)
-        src_val = src_pts[:, 2] > 0
-        src_g = source.grays[li].reshape(-1)
         cam = cams[li]
-        for _ in range(iters[levels - 1 - li]):
-            ne = dops.normal_equations(
-                T, src_pts, src_g, src_val, tgt, cam.fx, cam.fy, cam.cx, cam.cy,
-                LAMBDA_HYBRID_DEPTH, DEPTH_DIFF_MAX,
-            )
-            T = dops.solve_and_update(T, ne)
+        ne = dops.gauss_newton(
+            T, source.xyzs[li].reshape(-1, 3), source.grays[li].reshape(-1), tgt,
+            cam.fx, cam.fy, cam.cx, cam.cy, LAMBDA_HYBRID_DEPTH, DEPTH_DIFF_MAX,
+            iters[levels - 1 - li],
+        )
     rmse = torch.sqrt(ne.cost / torch.clamp(ne.num_inliers, min=1.0))
     return DenseTrackingResult(T, ne.cost, ne.num_inliers, rmse)
 

@@ -10,9 +10,12 @@ warp); a depth-consistency gate plays the role of a z-buffer.
 
 Pose update is left-multiplicative, T <- exp(xi) T.
 
-`normal_equations` runs the hand-written CUDA kernel
-(`csrc/dense_normal_eq.cu`) on CUDA tensors and `normal_equations_reference`
-on CPU tensors.
+`gauss_newton` takes the tracker's Gauss-Newton steps at one pyramid level:
+on CUDA tensors one launch of the hand-written kernel
+(`csrc/dense_normal_eq.cu`) per step, which linearises, solves, gates and
+updates the pose on the device; on CPU tensors `gn_step_reference`, its
+plain version, per step. `normal_equations` is the same kernel with the
+update switched off (plain version `normal_equations_reference`).
 """
 
 from __future__ import annotations
@@ -28,33 +31,33 @@ from . import image as image_ops
 
 
 class TermData(NamedTuple):
-    """Per-level target-side data, channels-first as the kernel reads it."""
+    """Per-level target-side data, channels-last as the kernel reads it."""
 
-    planes: torch.Tensor  # (6, H, W): gray, dx, dy, depth, zdx, zdy
+    texels: torch.Tensor  # (H, W, 8): gray, dx, dy, depth, zdx, zdy, 0, 0
 
     @property
     def gray(self) -> torch.Tensor:
-        return self.planes[0]
+        return self.texels[..., 0]
 
     @property
     def dx(self) -> torch.Tensor:
-        return self.planes[1]
+        return self.texels[..., 1]
 
     @property
     def dy(self) -> torch.Tensor:
-        return self.planes[2]
+        return self.texels[..., 2]
 
     @property
     def depth(self) -> torch.Tensor:
-        return self.planes[3]
+        return self.texels[..., 3]
 
     @property
     def zdx(self) -> torch.Tensor:
-        return self.planes[4]
+        return self.texels[..., 4]
 
     @property
     def zdy(self) -> torch.Tensor:
-        return self.planes[5]
+        return self.texels[..., 5]
 
 
 class NormalEquations(NamedTuple):
@@ -75,9 +78,12 @@ def build_term_data(
     interior = image_ops.box_sum3((depth > 0).to(gray.dtype)) > 8.5  # all 9 taps valid
     zdx = torch.where(interior, zdx, 0.0)
     zdy = torch.where(interior, zdy, 0.0)
+    pad = torch.zeros_like(gray)
     return TermData(
         torch.stack(
-            [gray, dx * sobel_scale, dy * sobel_scale, depth, zdx * sobel_scale, zdy * sobel_scale]
+            [gray, dx * sobel_scale, dy * sobel_scale, depth, zdx * sobel_scale, zdy * sobel_scale,
+             pad, pad],
+            dim=-1,
         )
     )
 
@@ -172,35 +178,52 @@ def normal_equations_reference(
     return NormalEquations(JTJ, JTr, cost, torch.sum(vf))
 
 
-# pixels per CTA of the kernel's first pass (256 threads x 4 pixels)
-_PIXELS_PER_CTA = 1024
+# rows of the kernel's partial sums: its grid has at most 264 CTAs (two on
+# each of the H100's 132 SMs); the C entry point checks the size
+_PARTIAL_ROWS = 264
+_N_TERMS = 29  # per CTA: 21 JTJ (upper triangle) + 6 JTr + cost + count
+DAMPING = 1e-6
 
 
-def _normal_equations_cuda(
-    T, src_xyz, src_gray, src_valid, tgt, fx, fy, cx, cy, lambda_depth, depth_diff_max,
-) -> NormalEquations:
-    dev = src_xyz.device
-    n = src_xyz.shape[0]
-    planes = tgt.planes
-    req = _build.require
-    req(src_xyz, "src_xyz", torch.float32, (n, 3), dev)
-    req(src_gray, "src_gray", torch.float32, (n,), dev)
-    req(src_valid, "src_valid", torch.bool, (n,), dev)
-    req(planes, "tgt.planes", torch.float32, (6, None, None), dev)
-    req(T, "T", torch.float32, (4, 4), dev)
-    _, h, w = planes.shape
+def _check_texels(tgt: TermData, dev) -> tuple[int, int]:
+    _build.require(tgt.texels, "tgt.texels", torch.float32, (None, None, 8), dev)
+    if tgt.texels.data_ptr() % 16:
+        raise ValueError("tgt.texels: not 16-byte aligned")
+    h, w, _ = tgt.texels.shape
+    return h, w
+
+
+def _launch_gn(T, src4, tgt, fx, fy, cx, cy, lambda_depth, depth_diff_max, update, iters):
+    """Run the kernel `iters` times on the current stream; returns the 44
+    floats of the last step's normal equations."""
+    dev = src4.device
+    _build.require(T, "T", torch.float32, (4, 4), dev)
+    h, w = _check_texels(tgt, dev)
     wi, wz = _stream_weights(lambda_depth, "hybrid")
-    num_blocks = max(1, -(-n // _PIXELS_PER_CTA))
-    partials = torch.empty((num_blocks, 29), dtype=torch.float32, device=dev)
+    partials = torch.empty((_PARTIAL_ROWS, _N_TERMS), dtype=torch.float32, device=dev)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)  # the kernel leaves it at 0
     out = torch.empty(44, dtype=torch.float32, device=dev)
-    err = _build.library().dense_normal_eq(
-        src_xyz.data_ptr(), src_gray.data_ptr(), src_valid.data_ptr(), n,
-        planes.data_ptr(), h, w, T.data_ptr(), fx, fy, cx, cy, wi, wz, depth_diff_max,
-        partials.data_ptr(), num_blocks, out.data_ptr(), _build.stream_handle(src_xyz),
+    err = _build.library().dense_gn(
+        src4.data_ptr(), src4.shape[0], tgt.texels.data_ptr(), h, w, T.data_ptr(),
+        fx, fy, cx, cy, wi, wz, depth_diff_max, DAMPING, int(update), iters,
+        partials.data_ptr(), _PARTIAL_ROWS, counter.data_ptr(), out.data_ptr(),
+        _build.stream_handle(src4),
     )
     _build.check(err, _build.DENSE_NORMAL_EQ)
-    _build.DENSE_NORMAL_EQ.launches += 1
+    _build.DENSE_NORMAL_EQ.launches += iters
+    return out
+
+
+def _as_ne(out: torch.Tensor) -> NormalEquations:
     return NormalEquations(out[:36].view(6, 6), out[36:42], out[42], out[43])
+
+
+def _pack_source(src_xyz: torch.Tensor, src_gray: torch.Tensor) -> torch.Tensor:
+    """(N, 4) x, y, z, gray: one 16-byte load per pixel in the kernel."""
+    n = src_xyz.shape[0]
+    _build.require(src_xyz, "src_xyz", torch.float32, (n, 3), src_xyz.device)
+    _build.require(src_gray, "src_gray", torch.float32, (n,), src_xyz.device)
+    return torch.cat([src_xyz, src_gray[:, None]], dim=1)
 
 
 def normal_equations(
@@ -214,24 +237,115 @@ def normal_equations(
     depth_diff_max: float,
 ) -> NormalEquations:
     """One linearisation of the hybrid term without Huber weights: the CUDA
-    kernel on CUDA tensors, the plain version on CPU tensors."""
+    kernel (update off) on CUDA tensors, the plain version on CPU tensors.
+
+    The kernel reads a source point as valid where its z > 0; here an
+    invalid point is passed to it with z = 0, and a point with z <= 0 is
+    never valid on the card."""
     args = (T, src_xyz, src_gray, src_valid, tgt, fx, fy, cx, cy, lambda_depth, depth_diff_max)
     if src_xyz.is_cuda:
-        return _normal_equations_cuda(*args)
+        _build.require(src_valid, "src_valid", torch.bool, (src_xyz.shape[0],), src_xyz.device)
+        src4 = _pack_source(torch.where(src_valid[:, None], src_xyz, 0.0), src_gray)
+        return _as_ne(_launch_gn(T, src4, tgt, fx, fy, cx, cy, lambda_depth, depth_diff_max,
+                                 update=False, iters=1))
     if src_xyz.device.type == "cpu":
         return normal_equations_reference(*args)
     raise ValueError(f"normal_equations: unsupported device {src_xyz.device}")
 
 
+def solve6_reference(A: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Solve the 6x6 system A x = b by LU with partial pivoting (the first
+    row of the largest |pivot|), in float32, with the kernel's operations in
+    the kernel's order. Returns (x, no pivot was exactly zero)."""
+    n = 6
+    A = A.clone()
+    b = b.clone()
+    rows = torch.arange(n, device=A.device)
+    nonsingular = torch.ones((), dtype=torch.bool, device=A.device)
+    for k in range(n):
+        p = k + torch.argmax(A[k:, k].abs())
+        swap = torch.where(rows == k, p, torch.where(rows == p, k, rows))
+        A, b = A[swap], b[swap]
+        piv = A[k, k]
+        nonsingular = nonsingular & (piv != 0)
+        lk = A[k + 1 :, k] / piv
+        A[k + 1 :, k + 1 :] -= lk[:, None] * A[k, k + 1 :]
+        b[k + 1 :] -= lk * b[k]
+    x = torch.zeros_like(b)
+    for i in reversed(range(n)):
+        s = b[i]
+        for j in range(i + 1, n):
+            s = s - A[i, j] * x[j]
+        x[i] = s / A[i, i]
+    return x, nonsingular
+
+
 def solve_and_update(
-    T: torch.Tensor, ne: NormalEquations, damping: float = 1e-6
+    T: torch.Tensor, ne: NormalEquations, damping: float = DAMPING
 ) -> torch.Tensor:
     """Gauss-Newton step: solve (JTJ + damp I) xi = -JTr, T <- exp(xi) T.
 
-    No-op when the system is degenerate. `solve_ex` reports a singular
-    system in `info` instead of raising, so the host never waits on it."""
+    No-op when the system is degenerate: xi not finite, 6 inliers or fewer,
+    or an exactly zero pivot. Nothing here waits for the device."""
     A = ne.JTJ + damping * torch.eye(6, dtype=ne.JTJ.dtype, device=ne.JTJ.device)
-    xi, info = torch.linalg.solve_ex(A, -ne.JTr)
-    ok = torch.isfinite(xi).all() & (ne.num_inliers > 6) & (info == 0)
-    xi = torch.where(ok, xi, 0.0)
-    return se3.se3_exp(xi) @ T
+    xi, nonsingular = solve6_reference(A, -ne.JTr)
+    ok = torch.isfinite(xi).all() & (ne.num_inliers > 6) & nonsingular
+    return torch.where(ok, se3.se3_exp(xi) @ T, T)
+
+
+def gn_step_reference(
+    T: torch.Tensor,
+    src_xyz: torch.Tensor,
+    src_gray: torch.Tensor,
+    src_valid: torch.Tensor,
+    tgt: TermData,
+    fx: float, fy: float, cx: float, cy: float,
+    lambda_depth: float,
+    depth_diff_max: float,
+) -> tuple[torch.Tensor, NormalEquations]:
+    """Plain version of one kernel launch: (the updated T, the normal
+    equations at the given T)."""
+    ne = normal_equations_reference(
+        T, src_xyz, src_gray, src_valid, tgt, fx, fy, cx, cy, lambda_depth, depth_diff_max)
+    return solve_and_update(T, ne), ne
+
+
+def gauss_newton_reference(
+    T, src_xyz, src_gray, tgt, fx, fy, cx, cy, lambda_depth, depth_diff_max, iters,
+) -> NormalEquations:
+    """Plain version of `gauss_newton`: `iters` calls of `gn_step_reference`."""
+    src_valid = src_xyz[:, 2] > 0
+    ne = None
+    for _ in range(iters):
+        T_new, ne = gn_step_reference(
+            T, src_xyz, src_gray, src_valid, tgt, fx, fy, cx, cy, lambda_depth, depth_diff_max)
+        T.copy_(T_new)
+    return ne
+
+
+def gauss_newton(
+    T: torch.Tensor,
+    src_xyz: torch.Tensor,  # (N, 3) source camera-frame points; valid where z > 0
+    src_gray: torch.Tensor,  # (N,)
+    tgt: TermData,
+    fx: float, fy: float, cx: float, cy: float,
+    lambda_depth: float,
+    depth_diff_max: float,
+    iters: int,
+) -> NormalEquations:
+    """`iters` Gauss-Newton steps of the hybrid term at one pyramid level,
+    updating T (4, 4) IN PLACE; returns the normal equations of the last
+    step (at the pose before its update). `iters` >= 1.
+
+    CUDA tensors: one kernel launch per step, all enqueued by one call, no
+    host sync. CPU tensors: `gauss_newton_reference`."""
+    if iters < 1:
+        raise ValueError(f"gauss_newton: iters {iters} < 1")
+    if src_xyz.is_cuda:
+        src4 = _pack_source(src_xyz, src_gray)
+        return _as_ne(_launch_gn(T, src4, tgt, fx, fy, cx, cy, lambda_depth, depth_diff_max,
+                                 update=True, iters=iters))
+    if src_xyz.device.type == "cpu":
+        return gauss_newton_reference(
+            T, src_xyz, src_gray, tgt, fx, fy, cx, cy, lambda_depth, depth_diff_max, iters)
+    raise ValueError(f"gauss_newton: unsupported device {src_xyz.device}")

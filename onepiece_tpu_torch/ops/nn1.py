@@ -19,6 +19,7 @@ from .. import _build
 
 LARGE = 1e30
 _TILE = 2048  # query rows per (tile, M) block of the plain version
+_CHUNK = 1024  # references per chunk of the kernel's grid (`kChunk` in csrc/nn1.cu)
 
 
 def nn1_reference(
@@ -62,9 +63,13 @@ def _nn1_cuda(query, ref, ref_valid) -> tuple[torch.Tensor, torch.Tensor]:
     d2 = torch.empty(n, dtype=torch.float32, device=dev)
     if n == 0:
         return idx, d2
+    chunks = -(-m // _CHUNK)
+    part_d2 = torch.empty((chunks, n), dtype=torch.float32, device=dev)  # per-chunk minima
+    part_idx = torch.empty((chunks, n), dtype=torch.int32, device=dev)
     err = _build.library().nn1(
         query.data_ptr(), ref.data_ptr(), ref_valid.data_ptr(), n, m,
-        idx.data_ptr(), d2.data_ptr(), _build.stream_handle(query),
+        idx.data_ptr(), d2.data_ptr(), part_d2.data_ptr(), part_idx.data_ptr(), chunks,
+        _build.stream_handle(query),
     )
     _build.check(err, _build.NN1)
     _build.NN1.launches += 1

@@ -4,8 +4,8 @@ Port of `onepiece_tpu/systems/dense_slam.py` (the reference's DenseFusion
 system), with the same host loop and bookkeeping:
 
   per frame:
-    - dense tracking against the previous frame (`odometry/dense.py`, the
-      normal-equations kernel on the card), then ONE transfer of the
+    - dense tracking against the previous frame (`odometry/dense.py`, one
+      Gauss-Newton kernel launch per iteration on the card), then ONE transfer of the
       relative pose and rmse to the host
     - the world pose chain T_w_cur = T_w_prev @ inv(T_ts), kept in numpy
     - frames grouped into submaps of `submap_size`; every CLOUD_STRIDE-th
@@ -20,8 +20,8 @@ system), with the same host loop and bookkeeping:
     - pose-graph Gauss-Newton over the submap poses, then every frame pose
       re-anchored to its submap
 
-Tensors live on `device` ("cuda": the kernels; "cpu": their plain
-versions). The host reads the device once per frame and a few times per
+Tensors live on `device` ("cuda", the default: the kernels; "cpu": their
+plain versions). The host reads the device once per frame and a few times per
 submap (the decisions of the loop are the host's, as in the JAX package).
 """
 
@@ -57,7 +57,7 @@ def _to_host(*ts: torch.Tensor) -> list[np.ndarray]:
 @dataclasses.dataclass
 class DenseSlam:
     camera: PinholeCamera
-    device: str | torch.device
+    device: str | torch.device = "cuda"
     submap_size: int = SUBMAP_SIZE
     voxel_size: float = 0.05
     icp_threshold: float = 0.1

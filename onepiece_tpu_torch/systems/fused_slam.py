@@ -3,7 +3,7 @@
 Port of `onepiece_tpu/systems/fused_slam.py`. One frame step:
 
     1. preprocess_frame     pyramids + XYZ backprojection
-    2. dense_tracking       multi-scale Gauss-Newton (normal-equations kernel)
+    2. dense_tracking       multi-scale Gauss-Newton (one kernel launch per step)
     3. pose chain           T_w_cur = T_w_prev @ inv(T_ts)
     4. bilateral_filter     pre-fusion depth smoothing
     5. touched_block_keys   unique packed keys in the truncation band
@@ -126,10 +126,11 @@ class FusedDenseFusion:
 
     Frame-to-frame tracking with a constant-velocity initial pose, every
     frame integrated. `device` says where every tensor of the run lives:
-    "cuda" runs the CUDA kernels, "cpu" their plain PyTorch versions."""
+    "cuda" (the default) runs the CUDA kernels, "cpu" their plain PyTorch
+    versions."""
 
     camera: PinholeCamera
-    device: str | torch.device
+    device: str | torch.device = "cuda"
     voxel_size: float = 0.0125
     truncation: float = 0.1
     capacity: int = 16384

@@ -8,8 +8,13 @@ a machine without a CUDA device. Run them on the card with
 (`tests/conftest.py` imports JAX, which the card's machine does not have.)
 
 Tolerances: TSDF weights equal, sdf and colour <= 1e-5; normal equations
-relative 1e-4 of the largest entry, inlier count equal; nn1 indices equal
-and squared distances bit-equal (same expression, same order). The kernels are
+relative 1e-4 of the largest entry, inlier count equal; one Gauss-Newton
+step (normal equations, 6x6 solve, se3_exp update in one launch) inliers
+equal and T within 1e-5 (sums in another order, sinf / cosf against
+torch's); a whole 3-level tracking, kernel route against the plain route on
+the card, within 1e-3 (the hard depth gate can flip an inlier and carry a
+2e-7 difference to ~4e-4); nn1 indices equal and squared distances
+bit-equal (same expression, same order). The kernels are
 built without implicit FMA contraction (the TSDF transform's FMAs are
 explicit, and its plain version makes the same ones), so per-element
 arithmetic rounds as the plain versions' does and only the order of the
@@ -101,6 +106,67 @@ def test_normal_eq_kernel_matches_plain(dev, frames):
         assert torch.allclose(nk.JTJ, nk.JTJ.T)
 
 
+def _gn_args(frames, li, T):
+    _, grays, depths = frames
+    src = dense.preprocess_frame(grays[0], depths[0], CAM)
+    tgt = dense.preprocess_frame(grays[1], depths[1], CAM)
+    c = CAM.pyramid(3)[li]
+    pts = src.xyzs[li].reshape(-1, 3)
+    return (T, pts, src.grays[li].reshape(-1), pts[:, 2] > 0,
+            dops.build_term_data(tgt.grays[li], tgt.depths[li], dense.SOBEL_SCALE),
+            c.fx, c.fy, c.cx, c.cy, 0.5, 0.05)
+
+
+def test_gn_step_kernel_matches_plain(dev, frames):
+    """One launch (linearise, solve, gate, update) against `gn_step_reference`
+    from the same T, at each level of the 160x120 pyramid."""
+    T = se3.se3_exp(torch.tensor([0.004, -0.003, 0.006, 0.004, -0.006, 0.003], device=dev))
+    T_before = T.clone()
+    for li in range(3):
+        _, pts, gray, valid, tgt, *rest = _gn_args(frames, li, T)
+        T_plain, ne_plain = dops.gn_step_reference(T, pts, gray, valid, tgt, *rest)
+        T_k = T.clone()
+        before = _build.DENSE_NORMAL_EQ.launches
+        ne_k = dops.gauss_newton(T_k, pts, gray, tgt, *rest, iters=1)
+        torch.cuda.synchronize()
+        assert _build.DENSE_NORMAL_EQ.launches == before + 1
+        assert float(ne_k.num_inliers) == float(ne_plain.num_inliers) > 6
+        for a, b in zip(ne_k[:3], ne_plain[:3]):
+            assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+        assert float((T_k - T_plain).abs().max()) <= 1e-5
+        assert float((T_k - T).abs().max()) > 1e-4  # the step moved T
+        assert torch.equal(T, T_before)  # the plain step does not write its input
+
+
+def test_gn_step_leaves_T_alone_on_an_all_invalid_source(dev, frames):
+    T = se3.se3_exp(torch.tensor([0.004, -0.003, 0.006, 0.004, -0.006, 0.003], device=dev))
+    _, pts, gray, _, tgt, *rest = _gn_args(frames, 0, T)
+    T_k = T.clone()
+    ne = dops.gauss_newton(T_k, pts * torch.tensor([1.0, 1.0, 0.0], device=dev), gray, tgt, *rest,
+                           iters=3)
+    assert float(ne.num_inliers) == 0.0 and float(ne.cost) == 0.0
+    assert torch.equal(T_k, T)
+
+
+def test_dense_tracking_on_the_card_matches_plain(dev, frames, monkeypatch):
+    """The 3-level tracker, one launch per iteration, against the plain
+    route (`gauss_newton_reference`) on the same CUDA tensors."""
+    _, grays, depths = frames
+    src = dense.preprocess_frame(grays[0], depths[0], CAM)
+    tgt = dense.preprocess_frame(grays[1], depths[1], CAM)
+    init = torch.eye(4, device=dev)
+    before = _build.DENSE_NORMAL_EQ.launches
+    res_k = dense.dense_tracking(src, tgt, CAM, init_T=init)
+    assert _build.DENSE_NORMAL_EQ.launches == before + sum(dense.DEFAULT_ITERS)
+    assert torch.equal(init, torch.eye(4, device=dev))  # the caller's pose is not written
+    monkeypatch.setattr(dops, "gauss_newton", dops.gauss_newton_reference)
+    res_p = dense.dense_tracking(src, tgt, CAM, init_T=init)
+    assert _build.DENSE_NORMAL_EQ.launches == before + sum(dense.DEFAULT_ITERS)
+    assert float((res_k.T_ts - res_p.T_ts).abs().max()) <= 1e-3
+    assert abs(float(res_k.rmse) - float(res_p.rmse)) <= 1e-3
+    assert float((res_k.T_ts - init).abs().max()) > 1e-3
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev, frames):
     _, grays, depths = frames
     pool = tsdf_slots.make_pool(8, dev)
@@ -138,7 +204,9 @@ def test_slice_on_the_card_matches_cpu(dev, frames):
 def _nn1_inputs(case, dev):
     gen = torch.Generator(device="cpu").manual_seed(1)
     n, m = {"ragged": (1000, 2100), "small_ref": (777, 5), "invalid": (3000, 4500),
-            "all_invalid": (300, 700), "ties": (640, 1920), "large": (32768, 32768)}[case]
+            "all_invalid": (300, 700), "ties": (640, 1920), "large": (32768, 32768),
+            "chunk_ragged": (1500, 2500), "chunk_tie": (700, 3000), "chunk_invalid": (1200, 3000),
+            "one_block": (100, 3000)}[case]
     q = torch.randn((n, 3), generator=gen)
     r = torch.randn((m, 3), generator=gen)
     v = torch.ones(m, dtype=torch.bool)
@@ -150,10 +218,16 @@ def _nn1_inputs(case, dev):
         r = r[:640].repeat(3, 1)
         v[:100] = False
         q = r[:640] + torch.randn((640, 3), generator=gen) * 1e-3
+    elif case == "chunk_tie":  # one point at the last index of chunk 0 and the first of chunk 1
+        r[1024] = r[1023]
+        q[:50] = r[1023] + torch.randn((50, 3), generator=gen) * 1e-4
+    elif case == "chunk_invalid":  # the whole second chunk (references 1024-2047) invalid
+        v[1024:2048] = False
     return q.to(dev), r.to(dev), v.to(dev)
 
 
-@pytest.mark.parametrize("case", ["ragged", "small_ref", "invalid", "all_invalid", "ties", "large"])
+@pytest.mark.parametrize("case", ["ragged", "small_ref", "invalid", "all_invalid", "ties", "large",
+                                  "chunk_ragged", "chunk_tie", "chunk_invalid", "one_block"])
 def test_nn1_kernel_matches_plain(dev, case):
     q, r, v = _nn1_inputs(case, dev)
     before = _build.NN1.launches
@@ -169,6 +243,10 @@ def test_nn1_kernel_matches_plain(dev, case):
         assert bool(v[ik.long()].all())
     if case == "ties":
         assert bool((ik[:100] >= 640).all()) and bool((ik[100:] < 640).all())
+    if case == "chunk_tie":
+        assert bool((ik[:50] == 1023).all())
+    if case == "chunk_invalid":
+        assert not bool(((ik >= 1024) & (ik < 2048)).any())
 
 
 def test_nn1_rejects_what_the_kernel_does_not_take(dev):

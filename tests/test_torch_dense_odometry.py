@@ -112,11 +112,16 @@ def test_kernelled_ops_refuse_devices_without_a_kernel(pair):
     _, tc, _, pt = pair
     meta = torch.device("meta")
     pts = pt[0].xyzs[2].reshape(-1, 3).to(meta)
-    tt = tdops.build_term_data(pt[1].grays[2], pt[1].depths[2]).planes.to(meta)
+    tt = tdops.build_term_data(pt[1].grays[2], pt[1].depths[2]).texels.to(meta)
     with pytest.raises(ValueError, match="unsupported device"):
         tdops.normal_equations(
             torch.eye(4, device=meta), pts, pts[:, 0], pts[:, 2] > 0, tdops.TermData(tt),
             tc.fx, tc.fy, tc.cx, tc.cy, 0.5, 0.05,
+        )
+    with pytest.raises(ValueError, match="unsupported device"):
+        tdops.gauss_newton(
+            torch.eye(4, device=meta), pts, pts[:, 0], tdops.TermData(tt),
+            tc.fx, tc.fy, tc.cx, tc.cy, 0.5, 0.05, iters=2,
         )
 
 

@@ -21,7 +21,7 @@ def test_profile_tool_reports_every_stage_on_cpu(capsys):
         "preprocess_frame", "dense_tracking", "pose chain + bilateral_filter",
         "touched_block_keys", "hash insert", "integrate_slots"]
     assert all(ms > 0 for ms in out["stage_ms_per_frame"].values())
-    assert set(out["gn_iteration_ms"]) == {"normal_equations", "solve_and_update"}
+    assert set(out["gn_iteration_ms"]) == {"gauss_newton_step", "normal_equations"}
     assert out["host_sync_sites_in_process_chunk"] is None
     assert out["profile"]["wall_ms"] > 0 and out["profile"]["device_busy_ms"] is None
 

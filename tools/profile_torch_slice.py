@@ -10,8 +10,10 @@ Renders the orbit at `TUM_CAMERA.pyramid(level + 1)[level]` (level 0 is
   1. stages: each stage of the frame step (as `systems/fused_slam.py:
      _frame_body` runs them) timed alone on the host clock and ended by a
      device sync; mean ms over frames 1..N-1;
-  2. one Gauss-Newton iteration at the finest level: `normal_equations` and
-     `solve_and_update`, each timed alone (host clock, synced) over 20 calls;
+  2. one Gauss-Newton iteration at the finest level: `gauss_newton` with
+     iters=1 (on the card one kernel launch that linearises, solves and
+     updates the pose) and `normal_equations` (the linearisation alone),
+     each timed alone (host clock, synced) over 20 calls;
   3. host syncs in `process_chunk` (CUDA only): synchronizing operations
      counted with `torch.cuda.set_sync_debug_mode("warn")`, by the line
      that made them;
@@ -103,21 +105,28 @@ def stage_times(slam: fused_slam.FusedDenseFusion, grays, depths) -> dict[str, f
 
 
 def gn_iteration_times(slam, grays, depths, reps: int = 20) -> dict[str, float]:
-    """Host ms of one normal_equations and one solve_and_update call at the
-    finest level, each alone, mean over `reps` synced calls."""
+    """Host ms of one Gauss-Newton step and of one linearisation alone at the
+    finest level, mean over `reps` synced calls."""
     dev, cam = slam.device, slam.camera
     src = dense.preprocess_frame(grays[0], depths[0], cam)
     tgt = dense.preprocess_frame(grays[1], depths[1], cam)
     term = dops.build_term_data(tgt.grays[0], tgt.depths[0], dense.SOBEL_SCALE)
     pts = src.xyzs[0].reshape(-1, 3)
+    gray = src.grays[0].reshape(-1)
+    rest = (cam.fx, cam.fy, cam.cx, cam.cy, dense.LAMBDA_HYBRID_DEPTH, dense.DEPTH_DIFF_MAX)
     T = torch.eye(4, device=dev)
-    args = (T, pts, src.grays[0].reshape(-1), pts[:, 2] > 0, term, cam.fx, cam.fy, cam.cx, cam.cy,
-            dense.LAMBDA_HYBRID_DEPTH, dense.DEPTH_DIFF_MAX)
-    ne = dops.normal_equations(*args)
-    dops.solve_and_update(T, ne)
-    ne_ms = [_timed(dev, lambda: dops.normal_equations(*args))[1] for _ in range(reps)]
-    su_ms = [_timed(dev, lambda: dops.solve_and_update(T, ne))[1] for _ in range(reps)]
-    return {"normal_equations": float(np.mean(ne_ms)), "solve_and_update": float(np.mean(su_ms))}
+
+    def step():
+        return dops.gauss_newton(T, pts, gray, term, *rest, iters=1)
+
+    def linearise():
+        return dops.normal_equations(T, pts, gray, pts[:, 2] > 0, term, *rest)
+
+    step()
+    linearise()
+    step_ms = [_timed(dev, step)[1] for _ in range(reps)]
+    ne_ms = [_timed(dev, linearise)[1] for _ in range(reps)]
+    return {"gauss_newton_step": float(np.mean(step_ms)), "normal_equations": float(np.mean(ne_ms))}
 
 
 def count_syncs(dev: torch.device, work) -> dict[str, int] | None:
