@@ -7,7 +7,10 @@ Phases, in order; any failure exits non-zero before the final `ok` line:
   1. require CUDA; print the card's name and power limit
   2. build the CUDA kernels of onepiece_tpu_torch/csrc/ with nvcc (sm_90a)
   3. TSDF-integrate kernel vs its plain PyTorch version on a real 640x480
-     frame (K = 8192 touched slots, a 16385-row pool)
+     frame (a 16385-row pool), in both image forms, gray (2, H, W) and rgb
+     (4, H, W) with seeded uniform colour, at K = 8192 touched slots and
+     with the same keys padded to K = 16384; each timed, the gray form at
+     K = 8192 also with the L2 cache flushed before every call
   4. dense Gauss-Newton kernel vs its plain versions at 640x480, 320x240
      and 160x120: the normal equations alone (update off), then one step
      (normal equations, 6x6 solve, gate, se3_exp update in one launch)
@@ -17,7 +20,8 @@ Phases, in order; any failure exits non-zero before the final `ok` line:
      (process_chunk -> finalize -> to_volume); ATE, block overflow, the
      kernels' launch counts and the absence of host syncs in the frame loop
      are checked, and ms per frame is timed over 5 fresh runs after one
-     warm run
+     warm run; then the same with rgbs (seeded uniform colour): the same
+     checks, and poses, sdf and weights bit-equal to the gray run's
   6. DenseSlam on 150 frames of the 640x480 `loop_trajectory` (three
      submaps): a warm run records the first nn1 inputs of each ICP call
      (the submap clouds at the ICP's initial pose); the nn1 kernel is held
@@ -29,9 +33,11 @@ Phases, in order; any failure exits non-zero before the final `ok` line:
      inside each ICP call; ms per frame over 3 runs and ms per
      _finish_submap
 Prints one JSON line of per-kernel results (launches: the counted runs of
-phases 5 and 7 together; ms: the kernels' device time per wrapper call from
-the profiler; event_ms and plain_ms: CUDA events around back-to-back calls
-of the wrapper and of the plain version; bound_ms: the least time the card
+phases 5 (gray and rgb) and 7 together; ms: the kernels' device time per
+wrapper call from the profiler; event_ms and plain_ms: CUDA events around
+back-to-back calls of the wrapper and of the plain version; the TSDF entry
+adds the same for the rgb form (rgb_*), the gray form at K = 16384
+(k16384_ms) and with a cold L2 (cold_ms); bound_ms: the least time the card
 could take for the same work, the larger of bytes over 3.35 TB/s and
 float32 operations over 67 TFLOP/s, the published H100 SXM peaks at 700 W;
 roofline_share = bound_ms / ms), the card line, then
@@ -51,6 +57,7 @@ import numpy as np
 import torch
 
 N_FRAMES = 16
+L2_FLUSH_BYTES = 256 << 20  # read between calls for a cold-L2 time: 5x the H100's 50 MB L2
 RENDER_STEPS = 64
 KERNEL1_TOL = 1e-5  # sdf and colour, absolute; weights must be equal
 KERNEL2_TOL = 1e-4  # JTJ, JTr, cost: max |kernel - plain| / max |plain|
@@ -251,46 +258,75 @@ def main() -> int:
     grays = torch.stack([g for _, g in frames])
     results = {}
 
-    # ---- 3. TSDF integrate vs plain ---------------------------------------
+    # ---- 3. TSDF integrate vs plain, gray and rgb ----------------------------
+    # seeded uniform colour, as tests/test_device_volume.py makes it
+    rgbs = torch.from_numpy(np.random.default_rng(1).uniform(
+        0, 1, (N_FRAMES, cam.height, cam.width, 3)).astype(np.float32)).to(dev)
     slam = FusedDenseFusion(cam, device=dev)
     vsz, trunc, kmax = slam.voxel_size, slam.truncation, slam.kmax
     intr = (cam.fx, cam.fy, cam.cx, cam.cy)
     pool = tsdf_slots.make_pool(slam.capacity, dev)
     table = dh.make_table(slam.table_size, slam.capacity, dev)
     T_w = [torch.eye(4, device=dev), torch.from_numpy(np.linalg.inv(poses[0]) @ poses[1]).to(dev)]
-    for i in range(2):  # fuse frame 0 (plain), then integrate frame 1 both ways
+    for i in range(2):  # fuse frame 0 (plain, gray), then integrate frame 1 both ways
         d_f = bilateral_filter(depths[i])
         keys = tsdf_ops.touched_block_keys(d_f, T_w[i], *intr, vsz, trunc, max_blocks=kmax, stride=slam.stride)
         table, slots = dh.insert(table, keys, claim_rounds=12 if i == 0 else 2)
         slots = torch.where(slots < 0, slam.capacity, slots).to(torch.int32)
-        args = (keys, slots, torch.stack([d_f, grays[i]]), se3.inverse_T(T_w[i]), *intr, vsz, trunc)
+        rest = (se3.inverse_T(T_w[i]), *intr, vsz, trunc)
         if i == 0:
-            tsdf_slots.integrate_slots_reference(pool, *args)
+            tsdf_slots.integrate_slots_reference(pool, keys, slots, torch.stack([d_f, grays[i]]), *rest)
+    images = {"gray": torch.stack([d_f, grays[1]]), "rgb": torch.cat([d_f[None], rgbs[1].permute(2, 0, 1)])}
+    pad = torch.full((kmax,), tsdf_ops.INVALID_KEY, dtype=torch.int32, device=dev)
+    entries = {kmax: (keys, slots),
+               2 * kmax: (torch.cat([keys, pad]), torch.cat([slots, torch.full_like(pad, slam.capacity)]))}
     n_keys = int((keys != tsdf_ops.INVALID_KEY).sum())
-    vk = tsdf_slots.integrate_slots(pool.clone(), *args)
-    vp = tsdf_slots.integrate_slots_reference(pool.clone(), *args)
-    torch.cuda.synchronize()
     body = slice(0, slam.capacity)  # the trash row holds garbage by design
-    if not torch.equal(vk[body, 1], vp[body, 1]):
-        raise AssertionError("tsdf_integrate: weights differ from the plain version")
-    err1 = float((vk[body] - vp[body]).abs().max())
-    if not err1 <= KERNEL1_TOL:
-        raise AssertionError(f"tsdf_integrate: max |sdf/colour err| {err1} > {KERNEL1_TOL}")
     scratch = pool.clone()
-    ms1 = device_ms(lambda: tsdf_slots.integrate_slots(scratch, *args), ("tsdf_integrate_kernel",))
-    event_ms1 = cuda_ms(lambda: tsdf_slots.integrate_slots(scratch, *args))
-    plain_ms1 = cuda_ms(lambda: tsdf_slots.integrate_slots_reference(scratch, *args))
-    # bytes: keys and slots, the image, each updated voxel's 5 channels read
-    # and written; a voxel that does not update is neither read nor written
-    n_upd = int((vp[body, 1] != pool[body, 1]).sum())
-    b1 = bound(8 * kmax + args[2].numel() * 4 + 40 * n_upd,
-               TSDF_OPS_PER_VOXEL * 512 * n_keys + TSDF_OPS_PER_UPDATE * n_upd)
-    results["tsdf_integrate"] = dict(max_abs_err=err1, ms=ms1, event_ms=event_ms1, plain_ms=plain_ms1, **b1)
-    print(f"tsdf_integrate: K={kmax} ({n_keys} real keys, {n_upd} voxels updated), pool "
-          f"{tuple(pool.shape)}: max abs err {err1:.3g}, weights equal; kernel {ms1:.4f} ms on the device "
-          f"({event_ms1:.4f} ms by events), plain {plain_ms1:.4f} ms, bound {b1['bound_ms']:.5f} ms "
-          f"({b1['bound_by']})", flush=True)
-    del pool, vk, vp, scratch
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
+    err1, tsdf = 0.0, {}
+    for form, img in images.items():
+        for k, (ks, ss) in entries.items():
+            args = (ks, ss, img, *rest)
+            vk = tsdf_slots.integrate_slots(pool.clone(), *args)
+            vp = tsdf_slots.integrate_slots_reference(pool.clone(), *args)
+            torch.cuda.synchronize()
+            if not torch.equal(vk[body, 1], vp[body, 1]):
+                raise AssertionError(f"tsdf_integrate {form} K={k}: weights differ from the plain version")
+            err = float((vk[body] - vp[body]).abs().max())
+            if not err <= KERNEL1_TOL:
+                raise AssertionError(f"tsdf_integrate {form} K={k}: max |sdf/colour err| {err} > {KERNEL1_TOL}")
+            err1 = max(err1, err)
+            ms = device_ms(lambda: tsdf_slots.integrate_slots(scratch, *args), ("tsdf_integrate_kernel",))
+            event_ms = cuda_ms(lambda: tsdf_slots.integrate_slots(scratch, *args))
+            plain_ms = cuda_ms(lambda: tsdf_slots.integrate_slots_reference(scratch, *args))
+            # bytes: keys and slots, the image, and for each updated voxel its 5
+            # channels written and its weight read, its old sdf and colour read
+            # only where that weight is > 0; other voxels are neither read nor written
+            updated = vp[body, 1] != pool[body, 1]
+            n_upd = int(updated.sum())
+            n_new = int((updated & (pool[body, 1] == 0)).sum())
+            b = bound(8 * k + img.numel() * 4 + 40 * (n_upd - n_new) + 24 * n_new,
+                      TSDF_OPS_PER_VOXEL * 512 * n_keys + TSDF_OPS_PER_UPDATE * n_upd)
+            tsdf[form, k] = dict(ms=ms, event_ms=event_ms, plain_ms=plain_ms, **b)
+            line = (f"tsdf_integrate {form} {tuple(img.shape)}: K={k} ({n_keys} real keys, {n_upd} voxels "
+                    f"updated, {n_new} of them with weight 0 before), pool {tuple(pool.shape)}: max abs err "
+                    f"{err:.3g}, weights equal; kernel {ms:.4f} "
+                    f"ms on the device ({event_ms:.4f} ms by events), plain {plain_ms:.4f} ms, bound "
+                    f"{b['bound_ms']:.5f} ms ({b['bound_by']}), roofline share {b['bound_ms'] / ms:.3f}")
+            if (form, k) == ("gray", kmax):
+                # every call finds the pool rows in device memory, not in L2
+                cold = device_ms(lambda: (flush.sum(), tsdf_slots.integrate_slots(scratch, *args)),
+                                 ("tsdf_integrate_kernel",))
+                tsdf[form, k]["cold_ms"] = cold
+                line += f"; {cold:.4f} ms with the L2 flushed before each call (share {b['bound_ms'] / cold:.3f})"
+            print(line, flush=True)
+    rgb8 = tsdf["rgb", kmax]
+    results["tsdf_integrate"] = dict(
+        max_abs_err=err1, **tsdf["gray", kmax], k16384_ms=tsdf["gray", 2 * kmax]["ms"],
+        rgb_ms=rgb8["ms"], rgb_event_ms=rgb8["event_ms"], rgb_plain_ms=rgb8["plain_ms"],
+        rgb_bound_ms=rgb8["bound_ms"], rgb_k16384_ms=tsdf["rgb", 2 * kmax]["ms"])
+    del pool, vk, vp, scratch, flush, entries, images
 
     # ---- 4. dense Gauss-Newton kernel vs plain ----------------------------
     src = dense.preprocess_frame(grays[0], depths[0], cam)
@@ -343,8 +379,8 @@ def main() -> int:
             results["dense_normal_eq"] = dict(ms=step_ms, event_ms=step_event_ms, plain_ms=plain_ms, **b2)
     results["dense_normal_eq"]["max_abs_err"] = err2
 
-    # ---- 5. the slice -----------------------------------------------------
-    def run(forbid_syncs: bool = False) -> tuple[FusedDenseFusion, np.ndarray, float]:
+    # ---- 5. the slice, gray and rgb --------------------------------------------
+    def run(forbid_syncs: bool = False, colour=None) -> tuple[FusedDenseFusion, np.ndarray, float]:
         torch.cuda.synchronize()
         t = time.perf_counter()
         s = FusedDenseFusion(cam, device=dev)
@@ -352,7 +388,7 @@ def main() -> int:
         # operation inside it raises in this mode
         torch.cuda.set_sync_debug_mode("error" if forbid_syncs else "default")
         try:
-            s.process_chunk(grays, depths)
+            s.process_chunk(grays, depths, colour)
         finally:
             torch.cuda.set_sync_debug_mode("default")
         est, _ = s.finalize()
@@ -360,30 +396,44 @@ def main() -> int:
         return s, est, (time.perf_counter() - t) * 1e3 / N_FRAMES
 
     run()  # warm: allocator, kernel library, cuBLAS/cuSOLVER handles
-    _build.reset_launch_counts()
-    slam, est, _ = run(forbid_syncs=True)
-    launches = {k.name: k.launches for k in _build.KERNELS}
-    expect = {"tsdf_integrate": N_FRAMES, "dense_normal_eq": sum(slam.iters) * (N_FRAMES - 1), "nn1": 0}
-    if launches != expect:
-        raise AssertionError(f"kernel launches on the main path {launches}, expected {expect}")
-    ate = traj.ate_rmse(est, poses)
-    vol = slam.to_volume()
-    active = vol.weight[: vol.num_active] > 0
-    if not (np.isfinite(est).all() and ate <= MAX_ATE_M):
-        raise AssertionError(f"ATE {ate} m > {MAX_ATE_M} m (or non-finite poses)")
-    if slam.overflow != 0:
-        raise AssertionError(f"block overflow {slam.overflow}")
-    if not (vol.num_active == len(vol.slot_of) > 0 and bool(active.any())
-            and bool(torch.isfinite(vol.sdf[: vol.num_active][active]).all())):
-        raise AssertionError("to_volume: empty or non-finite volume")
-    times = [run()[2] for _ in range(TIMED_RUNS)]
-    print(f"slice 640x480 x {N_FRAMES} frames: ATE {ate * 1e3:.4f} mm, num_active {slam.num_active}, "
-          f"overflow {slam.overflow}, key_saturated_frames {slam.key_saturated_frames}, "
-          f"launches {launches}, host syncs in the frame loop 0", flush=True)
-    print(f"slice ms/frame over {TIMED_RUNS} fresh runs: median {np.median(times):.3f}, "
-          f"p95 {np.percentile(times, 95):.3f} (runs {[round(t, 3) for t in times]}) on {card}",
-          flush=True)
-    del slam, vol, frames, depths, grays
+    slice_launches, slice_runs = {}, {}
+    for form, colour in (("gray", None), ("rgb", rgbs)):
+        _build.reset_launch_counts()
+        slam, est, _ = run(forbid_syncs=True, colour=colour)
+        launches = {k.name: k.launches for k in _build.KERNELS}
+        expect = {"tsdf_integrate": N_FRAMES, "dense_normal_eq": sum(slam.iters) * (N_FRAMES - 1), "nn1": 0}
+        if launches != expect:
+            raise AssertionError(f"{form} slice: kernel launches on the main path {launches}, expected {expect}")
+        slice_launches[form] = launches
+        ate = traj.ate_rmse(est, poses)
+        vol = slam.to_volume()
+        active = vol.weight[: vol.num_active] > 0
+        if not (np.isfinite(est).all() and ate <= MAX_ATE_M):
+            raise AssertionError(f"{form} slice: ATE {ate} m > {MAX_ATE_M} m (or non-finite poses)")
+        if slam.overflow != 0:
+            raise AssertionError(f"{form} slice: block overflow {slam.overflow}")
+        if not (vol.num_active == len(vol.slot_of) > 0 and bool(active.any())
+                and bool(torch.isfinite(vol.sdf[: vol.num_active][active]).all())
+                and bool(torch.isfinite(vol.color[: vol.num_active][active]).all())):
+            raise AssertionError(f"{form} slice: to_volume: empty or non-finite volume")
+        times = [run(colour=colour)[2] for _ in range(TIMED_RUNS)]
+        print(f"slice {form} 640x480 x {N_FRAMES} frames: ATE {ate * 1e3:.4f} mm, num_active {slam.num_active}, "
+              f"overflow {slam.overflow}, key_saturated_frames {slam.key_saturated_frames}, "
+              f"launches {launches}, host syncs in the frame loop 0", flush=True)
+        print(f"slice {form} ms/frame over {TIMED_RUNS} fresh runs: median {np.median(times):.3f}, "
+              f"p95 {np.percentile(times, 95):.3f} (runs {[round(t, 3) for t in times]}) on {card}",
+              flush=True)
+        slice_runs[form] = (est, slam._state.vox[body])
+        del slam, vol
+    # tracking reads gray only: the rgb run has the gray run's poses, sdf and
+    # weights, bit for bit; only its colours differ
+    (est_g, vox_g), (est_c, vox_c) = slice_runs["gray"], slice_runs["rgb"]
+    if not (np.array_equal(est_c, est_g) and torch.equal(vox_c[:, :2], vox_g[:, :2])):
+        raise AssertionError("rgb slice: poses, sdf or weights differ from the gray run's")
+    if torch.equal(vox_c[:, 2:], vox_g[:, 2:]):
+        raise AssertionError("rgb slice: the colours are the gray run's")
+    print("slice rgb: poses, sdf and weights bit-equal to the gray run's; colours differ", flush=True)
+    del frames, depths, grays, rgbs, slice_runs, vox_g, vox_c
 
     # ---- 6. DenseSlam warm run; nn1 vs plain at its ICP shapes ------------
     from onepiece_tpu_torch.ops import nn1 as nn1_ops
@@ -476,7 +526,8 @@ def main() -> int:
     # no single PyTorch call computes any of the three functions
     kernels = [
         dict(name=k.name, route="cuda", source=k.source, replaces=k.replaces,
-             launches=launches[k.name] + slam_launches[k.name], **results[k.name],
+             launches=sum(n[k.name] for n in slice_launches.values()) + slam_launches[k.name],
+             **results[k.name],
              roofline_share=results[k.name]["bound_ms"] / results[k.name]["ms"], library_ms=None)
         for k in _build.KERNELS
     ]

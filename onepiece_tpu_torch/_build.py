@@ -139,8 +139,9 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # vox, keys, slots, K, rows, img, H, W, T_cw, fx, fy, cx, cy, voxel, trunc, max_w, stream
-    "tsdf_integrate": [_VP, _VP, _VP, _I, _I, _VP, _I, _I, _VP, _F, _F, _F, _F, _F, _F, _F, _VP],
+    # vox, keys, slots, K, rows, img, channels (2 or 4), H, W, T_cw, fx, fy, cx, cy, voxel,
+    # trunc, max_w, stream
+    "tsdf_integrate": [_VP, _VP, _VP, _I, _I, _VP, _I, _I, _I, _VP, _F, _F, _F, _F, _F, _F, _F, _VP],
     # src (N, 4), N, tex (H, W, 8), H, W, T, fx, fy, cx, cy, wi, wz, ddm,
     # damping, update, iters, partials, partial_rows, counter, out, stream
     "dense_gn": [

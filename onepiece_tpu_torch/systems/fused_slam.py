@@ -57,11 +57,12 @@ class FrameOut(NamedTuple):
 
 
 def _integrate(
-    vox, table, depth_f, gray, T_w, camera, voxel_size, truncation, kmax, stride,
+    vox, table, depth_f, gray, rgb, T_w, camera, voxel_size, truncation, kmax, stride,
     claim_rounds,
 ):
     """Allocate the frame's touched blocks and fuse the frame into the pool
-    (in place). Returns (table, keys_saturated)."""
+    (in place), colour from `rgb` (H, W, 3) or, if it is None, from gray.
+    Returns (table, keys_saturated)."""
     keys = tsdf_ops.touched_block_keys(
         depth_f, T_w, camera.fx, camera.fy, camera.cx, camera.cy,
         voxel_size, truncation, max_blocks=kmax, stride=stride,
@@ -74,8 +75,10 @@ def _integrate(
     trash = vox.shape[0] - 1
     slots = torch.where(slots < 0, trash, slots).to(torch.int32)
     T_cw = se3.inverse_T(T_w)
+    # the kernel's channels-first image: [depth, gray] or [depth, r, g, b]
+    img = torch.stack([depth_f, gray]) if rgb is None else torch.cat([depth_f[None], rgb.permute(2, 0, 1)])
     tsdf_slots.integrate_slots(
-        vox, keys, slots, torch.stack([depth_f, gray]), T_cw,
+        vox, keys, slots, img, T_cw,
         camera.fx, camera.fy, camera.cx, camera.cy, voxel_size, truncation, MAX_WEIGHT,
     )
     return table, saturated
@@ -85,6 +88,7 @@ def _frame_body(
     state: FusedState,
     gray: torch.Tensor,
     depth: torch.Tensor,
+    rgb: torch.Tensor | None,
     camera: PinholeCamera,
     voxel_size: float,
     truncation: float,
@@ -92,11 +96,11 @@ def _frame_body(
     stride: int,
     iters: tuple[int, ...],
 ) -> tuple[FusedState, FrameOut]:
-    pyr = dense.preprocess_frame(gray, depth, camera)
+    pyr = dense.preprocess_frame(gray, depth, camera)  # tracking reads gray only
     res = dense.dense_tracking(state.pyr, pyr, camera, init_T=state.rel, iters=iters)
     T_w = dense.chain_pose(state.T_w, res.T_ts)
     table, saturated = _integrate(
-        state.vox, state.table, bilateral_filter(depth), gray, T_w, camera,
+        state.vox, state.table, bilateral_filter(depth), gray, rgb, T_w, camera,
         voxel_size, truncation, kmax, stride, FRAME_CLAIM_ROUNDS,
     )
     return (
@@ -152,13 +156,13 @@ class FusedDenseFusion:
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32).to(self.device)
 
-    def _init(self, gray: torch.Tensor, depth: torch.Tensor) -> None:
+    def _init(self, gray: torch.Tensor, depth: torch.Tensor, rgb: torch.Tensor | None) -> None:
         """Frame 0: pyramids, fresh pool and table, fuse at identity."""
         eye = torch.eye(4, dtype=torch.float32, device=self.device)
         vox = tsdf_slots.make_pool(self.capacity, self.device)
         table, _ = _integrate(
             vox, dh.make_table(self.table_size, self.capacity, self.device),
-            bilateral_filter(depth), gray, eye, self.camera, self.voxel_size,
+            bilateral_filter(depth), gray, rgb, eye, self.camera, self.voxel_size,
             self.truncation, self.kmax, self.stride, INIT_CLAIM_ROUNDS,
         )
         pyr = dense.preprocess_frame(gray, depth, self.camera)
@@ -166,28 +170,35 @@ class FusedDenseFusion:
         self._poses.append(eye)
         self._rmses.append(torch.zeros((), dtype=torch.float32, device=self.device))
 
-    def process_frame(self, gray, depth) -> None:
-        """Track and fuse one (H, W) gray + depth frame (numpy or tensor)."""
+    def process_frame(self, gray, depth, rgb=None) -> None:
+        """Track and fuse one (H, W) gray + depth frame (numpy or tensor).
+
+        With an (H, W, 3) `rgb` the volume takes its colour from it; without,
+        r = g = b = gray. Tracking reads gray only."""
         gray = self._tensor(gray)
         depth = self._tensor(depth)
+        if rgb is not None:
+            rgb = self._tensor(rgb)
         self.frame_count += 1
         if self._state is None:
-            self._init(gray, depth)
+            self._init(gray, depth, rgb)
             return
         self._state, out = _frame_body(
-            self._state, gray, depth, self.camera, self.voxel_size, self.truncation,
+            self._state, gray, depth, rgb, self.camera, self.voxel_size, self.truncation,
             self.kmax, self.stride, self.iters,
         )
         self._poses.append(out.T_w)
         self._rmses.append(out.rmse)
         self._sat.append(out.keys_saturated)
 
-    def process_chunk(self, grays, depths) -> None:
-        """Process a stack of K frames, (K, H, W) each, in order."""
+    def process_chunk(self, grays, depths, rgbs=None) -> None:
+        """Process a stack of K frames in order: grays and depths (K, H, W),
+        rgbs optional (K, H, W, 3)."""
         grays = self._tensor(grays)
         depths = self._tensor(depths)
-        for g, d in zip(grays, depths):
-            self.process_frame(g, d)
+        rgbs = [None] * len(grays) if rgbs is None else self._tensor(rgbs)
+        for g, d, c in zip(grays, depths, rgbs):
+            self.process_frame(g, d, c)
 
     def maybe_grow(self, threshold: float = 0.85) -> bool:
         """Double the pool (and, if needed, the hash table) when occupancy

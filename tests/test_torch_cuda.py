@@ -7,7 +7,8 @@ a machine without a CUDA device. Run them on the card with
 
 (`tests/conftest.py` imports JAX, which the card's machine does not have.)
 
-Tolerances: TSDF weights equal, sdf and colour <= 1e-5; normal equations
+Tolerances: TSDF weights equal, sdf and colour <= 1e-5 (gray and rgb
+images); normal equations
 relative 1e-4 of the largest entry, inlier count equal; one Gauss-Newton
 step (normal equations, 6x6 solve, se3_exp update in one launch) inliers
 equal and T within 1e-5 (sums in another order, sinf / cosf against
@@ -62,30 +63,88 @@ def frames(dev):
     return poses, torch.stack([g for _, g in out]), torch.stack([d for d, _ in out])
 
 
-def test_tsdf_integrate_kernel_matches_plain(dev, frames):
+def _rgb(frames, i, dev):
+    """Seeded uniform (H, W, 3) colour for frame i."""
+    h, w = frames[1].shape[1:]
+    return torch.from_numpy(np.random.default_rng(i).uniform(0, 1, (h, w, 3)).astype(np.float32)).to(dev)
+
+
+def _tsdf_inputs(dev, frames, form):
+    """A 4096-block pool with random prior content, frame 2's keys and slots
+    (K = 2048) and its image in the form's layout."""
     poses, grays, depths = frames
     T_w = torch.from_numpy(np.linalg.inv(poses[0]) @ poses[2]).to(dev)
     keys = tsdf_ops.touched_block_keys(depths[2], T_w, CAM.fx, CAM.fy, CAM.cx, CAM.cy, 0.0125, 0.1,
                                        max_blocks=2048, stride=2)
     table, slots = dh.insert(dh.make_table(1 << 13, 4096, dev), keys, claim_rounds=12)
     slots = torch.where(slots < 0, 4096, slots).to(torch.int32)
-    slots[:2] = torch.tensor([-3, 4097 + 5])  # outside the pool: both versions skip them
     gen = torch.Generator(device="cpu").manual_seed(0)
     pool = tsdf_slots.make_pool(4096, dev)
     pool[:, 1] = torch.randint(0, 3, (4097, 512), generator=gen).float().to(dev)
     pool[:, 0] = torch.rand((4097, 512), generator=gen).to(dev) * 2 - 1
     pool[:, 2:5] = torch.rand((4097, 3, 512), generator=gen).to(dev)
-    args = (keys, slots, torch.stack([depths[2], grays[2]]), se3.inverse_T(T_w),
-            CAM.fx, CAM.fy, CAM.cx, CAM.cy, 0.0125, 0.1)
+    img = (torch.stack([depths[2], grays[2]]) if form == "gray"
+           else torch.cat([depths[2][None], _rgb(frames, 2, dev).permute(2, 0, 1)]))
+    return pool, keys, slots, (img, se3.inverse_T(T_w), CAM.fx, CAM.fy, CAM.cx, CAM.cy, 0.0125, 0.1)
+
+
+def _kernel_vs_plain(pool, keys, slots, rest, launched=1):
     before = _build.TSDF_INTEGRATE.launches
-    vk = tsdf_slots.integrate_slots(pool.clone(), *args)
-    vp = tsdf_slots.integrate_slots_reference(pool.clone(), *args)
+    vk = tsdf_slots.integrate_slots(pool.clone(), keys, slots, *rest)
+    vp = tsdf_slots.integrate_slots_reference(pool.clone(), keys, slots, *rest)
     torch.cuda.synchronize()
-    assert _build.TSDF_INTEGRATE.launches == before + 1
-    assert torch.equal(vk[:4096, 1], vp[:4096, 1])
+    assert _build.TSDF_INTEGRATE.launches == before + launched
+    b = pool.shape[0] - 1  # the trash row holds garbage by design
+    assert torch.equal(vk[:b, 1], vp[:b, 1])
+    assert float((vk[:b] - vp[:b]).abs().max()) <= 1e-5
+    return vk
+
+
+@pytest.mark.parametrize("form", ["gray", "rgb"])
+def test_tsdf_integrate_kernel_matches_plain(dev, frames, form):
+    pool, keys, slots, rest = _tsdf_inputs(dev, frames, form)
+    n = int((keys != tsdf_ops.INVALID_KEY).sum())
+    assert n > 600
+    slots[:2] = torch.tensor([-3, 4097 + 5])  # outside the pool: both versions skip them
+    # padding keys and out-of-pool slots in the middle of the real entries too
+    keys[[n // 5, n // 2, n - 1]] = tsdf_ops.INVALID_KEY
+    slots[[n // 3, n // 3 + 1, 2 * n // 3]] = torch.tensor([-1, 4097, 1 << 20], dtype=torch.int32, device=dev)
+    vk = _kernel_vs_plain(pool, keys, slots, rest)
     assert int((vk[:4096, 1] != pool[:4096, 1]).sum()) > 10000
-    assert float((vk[:4096] - vp[:4096]).abs().max()) <= 1e-5
     assert torch.equal(vk[4096], pool[4096])  # padding keys leave the trash row alone
+    skipped = slots[[0, 1, n // 3, n // 3 + 1, 2 * n // 3]]
+    assert not bool(((skipped >= 0) & (skipped <= 4096)).any())
+    for i in (n // 5, n // 2, n - 1):  # a padded entry's row is not touched
+        assert torch.equal(vk[slots[i]], pool[slots[i]])
+    if form == "rgb":  # the colour channels took the rgb, not the depth's neighbour
+        gray = tsdf_slots.integrate_slots(pool.clone(), keys, slots, torch.stack([rest[0][0], frames[1][2]]),
+                                          *rest[1:])
+        assert torch.equal(vk[:4096, :2], gray[:4096, :2])
+        assert float((vk[:4096, 2:] - gray[:4096, 2:]).abs().max()) > 0.1
+
+
+@pytest.mark.parametrize("size", ["below_the_grid", "empty", "k16384", "weight_zero"])
+def test_tsdf_integrate_kernel_sizes(dev, frames, size):
+    """K smaller than the persistent grid, K = 0 (no launch), the main
+    path's keys padded to K = 16,384 (after `maybe_grow` doubles kmax), and
+    a pool whose weights are all 0 under random sdf and colour (the kernel
+    reads no old sdf or colour where a whole float4 group updates with
+    weight 0, and keeps them where a voxel of the group does not update)."""
+    pool, keys, slots, rest = _tsdf_inputs(dev, frames, "gray")
+    n = int((keys != tsdf_ops.INVALID_KEY).sum())
+    if size == "weight_zero":
+        pool[:, 1] = 0.0
+    if size == "below_the_grid":
+        keys, slots = keys[n // 2: n // 2 + 5].clone(), slots[n // 2: n // 2 + 5].clone()
+    elif size == "empty":
+        keys, slots = keys[:0], slots[:0]
+    else:
+        pad = 16384 - keys.shape[0]
+        keys = torch.cat([keys, torch.full((pad,), tsdf_ops.INVALID_KEY, dtype=torch.int32, device=dev)])
+        slots = torch.cat([slots, torch.full((pad,), 4096, dtype=torch.int32, device=dev)])
+    vk = _kernel_vs_plain(pool, keys, slots, rest, launched=0 if size == "empty" else 1)
+    changed = int((vk[:4096, 1] != pool[:4096, 1]).sum())
+    assert changed == 0 if size == "empty" else changed > 100
 
 
 def test_normal_eq_kernel_matches_plain(dev, frames):
@@ -180,6 +239,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev, frames):
         tsdf_slots.integrate_slots(pool, keys, keys, img, T.T, *intr)
     with pytest.raises(ValueError, match="on cpu"):
         tsdf_slots.integrate_slots(pool, keys, keys, img.cpu(), T, *intr)
+    with pytest.raises(ValueError, match="shape"):
+        tsdf_slots.integrate_slots(pool, keys, keys, torch.cat([img, img[1:]]), T, *intr)
+    with pytest.raises(ValueError, match="dtype"):
+        tsdf_slots.integrate_slots(pool, keys, keys, img.double(), T, *intr)
 
 
 def test_slice_on_the_card_matches_cpu(dev, frames):
@@ -199,6 +262,32 @@ def test_slice_on_the_card_matches_cpu(dev, frames):
     est_cpu, _ = on_cpu.finalize()
     assert np.abs(est_card - est_cpu).max() <= 1e-4
     assert abs(on_card.num_active - on_cpu.num_active) <= 0.01 * on_cpu.num_active
+
+
+def test_rgb_slice_on_the_card_keeps_the_gray_geometry(dev, frames):
+    """The 80x60 slice with rgbs: poses, sdf and weights bit-equal to the
+    gray run's on the card (tracking reads gray only), colours finite."""
+    _, grays, depths = frames
+    cam = TUM_CAMERA.pyramid(4)[3]
+    kw = dict(capacity=2048, table_size=1 << 12, kmax=512, stride=2)
+    g = torch.nn.functional.avg_pool2d(grays[:, None], 2)[:, 0]
+    d = torch.nn.functional.avg_pool2d(depths[:, None], 2)[:, 0]
+    rgbs = torch.stack([_rgb(frames, i, dev) for i in range(len(g))])
+    rgbs = torch.nn.functional.avg_pool2d(rgbs.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+    runs = []
+    for c in (None, rgbs):
+        _build.reset_launch_counts()
+        s = FusedDenseFusion(cam, device=dev, **kw)
+        s.process_chunk(g, d, c)
+        assert _build.TSDF_INTEGRATE.launches == len(g)
+        runs.append((s.finalize()[0], s._state.vox[:-1]))
+    (est_g, vox_g), (est_c, vox_c) = runs
+    np.testing.assert_array_equal(est_c, est_g)
+    assert torch.equal(vox_c[:, :2], vox_g[:, :2])
+    seen = vox_c[:, 1] > 0
+    col = vox_c[:, 2:5].movedim(1, -1)[seen]
+    assert bool(torch.isfinite(col).all())
+    assert float((col - vox_g[:, 2:5].movedim(1, -1)[seen]).abs().max()) > 0.1
 
 
 def _nn1_inputs(case, dev):

@@ -22,7 +22,12 @@ Tolerances:
     rows weights equal, sdf < 5e-4, colour < 5e-3 (bf16 split) on every
     voxel where the oracle agrees with the Pallas kernel (all but <= 1e-4
     of them: its transform rounds a few voxels to a neighbouring pixel);
-  - maybe_grow from the same state: pool and table exactly equal.
+  - the same integration step with an rgb image, against JAX `_integrate`
+    with that rgb (Pallas in interpret mode, bf16 `pack_image`) and the
+    exact oracle with that rgb: the same tolerances;
+  - maybe_grow from the same state: pool and table exactly equal;
+  - the port with rgbs (port only, seeded uniform colour): poses, sdf and
+    weights bit-equal to its gray run (tracking reads gray only).
 """
 
 import jax
@@ -62,6 +67,7 @@ def run():
     ]
     grays = np.stack([np.array(g) for _, g in frames])
     depths = np.stack([np.array(d) for d, _ in frames])
+    rgbs = np.random.default_rng(1).uniform(0, 1, (*grays.shape, 3)).astype(np.float32)
 
     slam_j = jfs.FusedDenseFusion(cam_j, interpret=True, **KW)
     states = []  # JAX state after each frame, leaves copied to numpy
@@ -73,7 +79,7 @@ def run():
     slam_t = tfs.FusedDenseFusion(cam_t, device="cpu", **KW)
     slam_t.process_chunk(grays, depths)
     est_t, rmse_t = slam_t.finalize()
-    return dict(cam_j=cam_j, cam_t=cam_t, poses=poses, grays=grays, depths=depths, states=states,
+    return dict(cam_j=cam_j, cam_t=cam_t, poses=poses, grays=grays, depths=depths, rgbs=rgbs, states=states,
                 slam_j=slam_j, est_j=est_j, slam_t=slam_t, est_t=est_t, rmse_t=rmse_t)
 
 
@@ -126,14 +132,40 @@ def test_teacher_forced_step_matches_jax(run):
     assert np.abs(slam._state.T_w.numpy() - ref.T_w).max() <= 3e-3  # vs the prewarp loop
 
     # integration from the same state with the JAX loop's pose and filtered depth
+    _integration_matches_jax(run, k, None, ref.vox, ref.table)
+
+
+def test_teacher_forced_rgb_integration_matches_jax(run):
+    """The integration step of the teacher-forced test with an rgb image:
+    JAX `_integrate(..., rgb, interpret=True)` from the JAX state after frame
+    1 against the port's `_integrate(..., rgb)`."""
+    k = 1
+    ref_k, ref = run["states"][k], run["states"][k + 1]
+    depth_f = jbilateral(jnp.asarray(run["depths"][k + 1]))
+    vox_j, table_j, _ = jfs._integrate(
+        jnp.asarray(ref_k.vox), jax.tree.map(jnp.asarray, ref_k.table), depth_f,
+        jnp.asarray(run["grays"][k + 1]), jnp.asarray(run["rgbs"][k + 1]), jnp.asarray(ref.T_w),
+        run["cam_j"], 0.0125, 0.1, KW["kmax"], KW["stride"], 100.0, True, tfs.FRAME_CLAIM_ROUNDS,
+    )
+    _integration_matches_jax(run, k, run["rgbs"][k + 1], np.asarray(vox_j), table_j)
+
+
+def _integration_matches_jax(run, k, rgb, vox_j, table_j):
+    """The port's `_integrate` from the JAX state after frame k, with the JAX
+    loop's pose and filtered depth of frame k + 1 and colour from `rgb` (or
+    gray), against the exact oracle on the same prior rows and against
+    `vox_j` / `table_j`, the JAX package's pool and table after the same step."""
+    ref_k, ref = run["states"][k], run["states"][k + 1]
+    gray, depth = run["grays"][k + 1], run["depths"][k + 1]
     st = tfs.state_from_numpy(ref_k, "cpu")
     depth_f = np.array(jbilateral(jnp.asarray(depth)))
     table, _ = tfs._integrate(
         st.vox, st.table, torch.from_numpy(depth_f), torch.from_numpy(gray),
+        None if rgb is None else torch.from_numpy(rgb),
         torch.from_numpy(ref.T_w), run["cam_t"], 0.0125, 0.1, KW["kmax"], KW["stride"],
         tfs.FRAME_CLAIM_ROUNDS,
     )
-    slots_t, slots_j = _block_slots(table), _block_slots(ref.table)
+    slots_t, slots_j = _block_slots(table), _block_slots(table_j)
     assert len(slots_t.keys() & slots_j.keys()) >= 0.995 * len(slots_t.keys() | slots_j.keys())
     # the blocks both packages integrated this frame (kmax saturates here)
     cam = run["cam_j"]
@@ -147,12 +179,12 @@ def test_teacher_forced_step_matches_jax(run):
     assert len(keys) >= 0.99 * (KW["kmax"] - 1)
     port = st.vox.numpy()[[slots_t[key] for key in keys]]
     rows_j = [slots_j[key] for key in keys]
-    pallas = ref.vox[rows_j]
+    pallas = vox_j[rows_j]
     s_o, w_o, c_o = jtsdf.integrate_blocks(  # the exact oracle on the same prior rows
         jnp.asarray(ref_k.vox[rows_j, 0]), jnp.asarray(ref_k.vox[rows_j, 1]),
         jnp.asarray(np.moveaxis(ref_k.vox[rows_j, 2:5], 1, -1)),
         jdh.unpack_keys(jnp.asarray(keys, jnp.int32)), jnp.ones(len(keys), bool),
-        jnp.asarray(depth_f), jnp.asarray(np.repeat(gray[..., None], 3, -1)),
+        jnp.asarray(depth_f), jnp.asarray(np.repeat(gray[..., None], 3, -1) if rgb is None else rgb),
         jse3.inverse_T(jnp.asarray(ref.T_w)), cam.fx, cam.fy, cam.cx, cam.cy, 0.0125, 0.1,
     )
     np.testing.assert_array_equal(port[:, 1], np.asarray(w_o))
@@ -190,3 +222,18 @@ def test_maybe_grow_matches_jax(run):
     na = slam_t.num_active
     slam_t.process_frame(run["grays"][-1], run["depths"][-1])
     assert slam_t.overflow == 0 and na <= slam_t.num_active < slam_t.capacity
+
+
+def test_rgb_run_keeps_the_gray_runs_poses_and_geometry(run):
+    """process_chunk with rgbs: tracking reads gray only, so poses, sdf and
+    weights are bit-equal to the gray run's; only the colours differ."""
+    slam = tfs.FusedDenseFusion(run["cam_t"], device="cpu", **KW)
+    slam.process_chunk(run["grays"], run["depths"], run["rgbs"])
+    est, _ = slam.finalize()
+    np.testing.assert_array_equal(est, run["est_t"])
+    vox, vox_gray = slam._state.vox[:-1], run["slam_t"]._state.vox[:-1]
+    assert torch.equal(vox[:, :2], vox_gray[:, :2])
+    seen = vox[:, 1] > 0
+    col = vox[:, 2:5].movedim(1, -1)[seen]
+    assert bool(torch.isfinite(col).all()) and float(col.min()) >= 0.0 and float(col.max()) <= 1.0
+    assert float((col - vox_gray[:, 2:5].movedim(1, -1)[seen]).abs().max()) > 0.1

@@ -9,8 +9,11 @@ Tolerances:
   - integrate_slots_reference (and the port's `integrate_blocks`) vs the
     exact oracle `integrate_blocks`: weights equal, sdf and colour <= 1e-6;
   - vs `integrate_slots_pallas(interpret=True)`: weights equal, sdf < 5e-4
-    (its bf16 hi/lo depth split), colour < 5e-3 (bf16 gray), on an image
-    no larger than the Pallas window so the window clips nothing.
+    (its bf16 hi/lo depth split), colour < 5e-3 (bf16 gray or rgb), on an
+    image no larger than the Pallas window so the window clips nothing.
+Both image forms are held: gray ((2, H, W) [depth, gray], r = g = b) and
+rgb ((4, H, W) [depth, r, g, b]; the Pallas kernel takes it packed by
+`pack_image`).
 """
 
 import jax.numpy as jnp
@@ -39,6 +42,22 @@ def frame():
     """A rendered 160x120 frame of the default scene: (depth, gray)."""
     d, g = jsyn.render(jsyn.default_scene(), jnp.eye(4), FX, FY, CX, CY, H, W, num_steps=48)
     return np.array(d), np.array(g)
+
+
+def _colour(frame, form):
+    """(H, W, 3) colour of the frame: gray repeated, or seeded uniform rgb."""
+    depth, gray = frame
+    if form == "gray":
+        return np.repeat(gray[..., None], 3, -1)
+    return np.random.default_rng(1).uniform(0, 1, (H, W, 3)).astype(np.float32)
+
+
+def _image(frame, form):
+    """The port's channels-first image of the form."""
+    depth, gray = frame
+    if form == "gray":
+        return np.stack([depth, gray])
+    return np.concatenate([depth[None], np.moveaxis(_colour(frame, form), -1, 0)])
 
 
 def _pose(xi):
@@ -178,20 +197,22 @@ def _pool_and_slots(depth, T, nb_max, pad):
     return vox, keys_p, slots, nb
 
 
-def test_integrate_slots_reference_matches_oracle(frame):
-    depth, gray = frame
+@pytest.mark.parametrize("form", ["gray", "rgb"])
+def test_integrate_slots_reference_matches_oracle(frame, form):
+    depth, _ = frame
+    rgb = _colour(frame, form)
     T_wc = _pose([0.02, -0.01, 0.03, 0.01, 0.02, -0.01])
     T_cw = np.linalg.inv(T_wc).astype(np.float32)
     vox, keys, slots, nb = _pool_and_slots(depth, T_wc, 400, 50)
     out = tts.integrate_slots(
         torch.from_numpy(vox.copy()), torch.from_numpy(keys), torch.from_numpy(slots),
-        torch.from_numpy(np.stack([depth, gray])), torch.from_numpy(T_cw), FX, FY, CX, CY, VOX, TRUNC,
+        torch.from_numpy(_image(frame, form)), torch.from_numpy(T_cw), FX, FY, CX, CY, VOX, TRUNC,
     ).numpy()
     rows = slots[:nb]
     bc = jdh.unpack_keys(jnp.asarray(keys[:nb]))
     s1, w1, c1 = jtsdf.integrate_blocks(
         jnp.asarray(vox[rows, 0]), jnp.asarray(vox[rows, 1]), jnp.asarray(np.moveaxis(vox[rows, 2:5], 1, -1)),
-        bc, jnp.ones(nb, bool), jnp.asarray(depth), jnp.asarray(np.repeat(gray[..., None], 3, -1)),
+        bc, jnp.ones(nb, bool), jnp.asarray(depth), jnp.asarray(rgb),
         jnp.asarray(T_cw), FX, FY, CX, CY, VOX, TRUNC,
     )
     assert (np.asarray(w1) != vox[rows, 1]).sum() > 20000, "must exercise real updates"
@@ -203,26 +224,29 @@ def test_integrate_slots_reference_matches_oracle(frame):
         torch.from_numpy(vox[rows, 0]), torch.from_numpy(vox[rows, 1]),
         torch.from_numpy(np.moveaxis(vox[rows, 2:5], 1, -1)), torch.from_numpy(np.asarray(bc)),
         torch.ones(nb, dtype=torch.bool), torch.from_numpy(depth),
-        torch.from_numpy(np.repeat(gray[..., None], 3, -1)), torch.from_numpy(T_cw), FX, FY, CX, CY, VOX, TRUNC,
+        torch.from_numpy(rgb), torch.from_numpy(T_cw), FX, FY, CX, CY, VOX, TRUNC,
     )
     np.testing.assert_array_equal(w2.numpy(), np.asarray(w1))
     assert np.abs(s2.numpy() - np.asarray(s1)).max() <= 1e-6
     assert np.abs(c2.numpy() - np.asarray(c1)).max() <= 1e-6
 
 
-def test_integrate_slots_reference_matches_pallas_kernel(frame):
-    depth, gray = frame
+@pytest.mark.parametrize("form", ["gray", "rgb"])
+def test_integrate_slots_reference_matches_pallas_kernel(frame, form):
+    depth, _ = frame
     assert H <= jtp.WIN_R and W <= jtp.WIN_C  # the Pallas window clips nothing
     T_wc = _pose([0.01, 0.02, -0.02, -0.01, 0.015, 0.0])
     T_cw = np.linalg.inv(T_wc).astype(np.float32)
     vox, keys, slots, nb = _pool_and_slots(depth, T_wc, 48, 16)
-    img = np.stack([depth, gray])
+    img = _image(frame, form)
     out_t = tts.integrate_slots_reference(
         torch.from_numpy(vox.copy()), torch.from_numpy(keys), torch.from_numpy(slots),
         torch.from_numpy(img), torch.from_numpy(T_cw), FX, FY, CX, CY, VOX, TRUNC,
     ).numpy()
+    # the Pallas kernel's gray form is the f32 (2, H, W) image; its rgb form the bf16 packing
+    img_j = jnp.asarray(img) if form == "gray" else jtp.pack_image(jnp.asarray(depth), jnp.asarray(_colour(frame, form)))
     out_j = np.asarray(jtp.integrate_slots_pallas(
-        jnp.asarray(vox), jnp.asarray(keys), jnp.asarray(slots), jnp.asarray(img),
+        jnp.asarray(vox), jnp.asarray(keys), jnp.asarray(slots), img_j,
         jnp.asarray(T_cw), FX, FY, CX, CY, VOX, TRUNC, interpret=True,
     ))
     rows = slots[:nb]
@@ -251,6 +275,18 @@ def test_integrate_slots_skips_slots_outside_the_pool(frame):
     np.testing.assert_array_equal(out_bad[:nb], out_pad[:nb])
     np.testing.assert_array_equal(out_bad[slots[:2]], vox[slots[:2]])
     assert (out_bad[:nb, 1] != vox[:nb, 1]).sum() > 2000
+
+
+@pytest.mark.parametrize("case", ["three_channels", "float64", "two_dims"])
+def test_integrate_slots_rejects_other_images(frame, case):
+    """Only (2, H, W) and (4, H, W) float32 images are taken, on every device."""
+    depth, gray = frame
+    vox, keys, slots, _ = _pool_and_slots(depth, np.eye(4, dtype=np.float32), 8, 2)
+    img = {"three_channels": np.stack([depth, gray, gray]), "float64": np.stack([depth, gray]).astype(np.float64),
+           "two_dims": depth}[case]
+    with pytest.raises(ValueError, match="expected \\(2, H, W\\)"):
+        tts.integrate_slots(torch.from_numpy(vox), torch.from_numpy(keys), torch.from_numpy(slots),
+                            torch.from_numpy(img), torch.eye(4), FX, FY, CX, CY, VOX, TRUNC)
 
 
 def test_pool_layout_matches_jax():
