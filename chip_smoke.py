@@ -32,8 +32,17 @@ Phases, in order; any failure exits non-zero before the final `ok` line:
      calls, no TSDF launch; host syncs counted per frame, per submap and
      inside each ICP call; ms per frame over 3 runs and ms per
      _finish_submap
+  8. meshing: the marching-cubes kernel vs its plain version on the fused
+     gray and rgb volumes of phase 5 (triangles equal, in order), timed;
+     then, each with the launch counts at 0, the reconstruction paths:
+     `to_volume().extract_mesh()` of both phase-5 runs, `dedup_triangle_soup`
+     and `write_ply_mesh` to a temporary file, the vertices checked against
+     the synthetic scene's SDF; DenseFusion's post-hoc reconstruction of
+     phase 7 (every 8th frame at the optimised poses, voxel 0.02 m, through
+     `TSDFVolume.integrate`) and its mesh; `PipelinedDenseFusion` on the
+     16-frame orbit (ATE) and its mesh
 Prints one JSON line of per-kernel results (launches: the counted runs of
-phases 5 (gray and rgb) and 7 together; ms: the kernels' device time per
+phases 5 (gray and rgb), 7 and 8 together; ms: the kernels' device time per
 wrapper call from the profiler; event_ms and plain_ms: CUDA events around
 back-to-back calls of the wrapper and of the plain version; the TSDF entry
 adds the same for the rgb form (rgb_*), the gray form at K = 16384
@@ -76,6 +85,14 @@ TSDF_OPS_PER_UPDATE = 20  # truncation, weighted averages of sdf and colour
 GN_OPS_PER_PIXEL = 98  # valid source pixel: transform, projection, 6-channel bilinear
 GN_OPS_PER_INLIER = 166  # Jacobian rows, 27 weighted products and sums, cost
 NN1_OPS_PER_PAIR = 8  # 3 sub, 3 mul, 2 add per (query, valid reference)
+MC_OPS_PER_VOXEL = 32  # 8 corners: |sdf|, 3 comparisons
+MC_OPS_PER_TRIANGLE = 99  # 3 edges (6 each), 9 coordinates (6 each), 9 colour channels (3 each)
+MC_BYTES_PER_BLOCK = 32 + 512 * 8  # its slot, 7 neighbour slots, the row's sdf and weight (512 x 2 f32)
+MC_BYTES_PER_MESHED_BLOCK = 12  # its coords, read only where a triangle is written
+MC_BYTES_PER_COLOUR_VOXEL = 12  # r, g, b f32 of a voxel at a corner of a block that holds a triangle
+MC_BYTES_PER_TRIANGLE = 72  # 3 vertices and 3 colours of 3 f32
+DENSE_FUSION_VOXEL = 0.02  # tools/dense_fusion.py's post-hoc reconstruction
+DENSE_FUSION_STRIDE = 8
 
 
 def bound(n_bytes: float, n_ops: float) -> dict:
@@ -211,6 +228,172 @@ def run_slam(cam, dev, grays, depths, wrap_finish=None):
     if wrap_finish is None:
         torch.cuda.synchronize()
     return slam, (time.perf_counter() - t) * 1e3 / len(grays), finish_ms
+
+
+def counted(expect: dict, what: str):
+    """Run-time check of the launch counts of one main-path run (the counts
+    were set to 0 just before it): returns them."""
+    from onepiece_tpu_torch import _build
+
+    launches = {k.name: k.launches for k in _build.KERNELS}
+    if launches != expect:
+        raise AssertionError(f"{what}: kernel launches {launches}, expected {expect}")
+    return launches
+
+
+def scene_distance(scene, verts: np.ndarray, T_world: np.ndarray, dev) -> tuple[float, float]:
+    """Median and 90th percentile of |scene_sdf| at the mesh's vertices, the
+    volume's frame mapped to the scene's by T_world (4, 4)."""
+    from onepiece_tpu_torch.utils import synthetic
+
+    v = torch.from_numpy(verts.reshape(-1, 3)).to(dev) @ torch.from_numpy(T_world[:3, :3].T).to(dev) \
+        + torch.from_numpy(T_world[:3, 3]).to(dev)
+    d = synthetic.scene_sdf(scene, v)[0].abs().cpu().numpy()
+    return float(np.median(d)), float(np.percentile(d, 90))
+
+
+def mc_bytes(vox, slots, nbr, coords, voxel_size) -> tuple[int, int, int]:
+    """The bytes the marching-cubes function must move on this volume, from
+    the plain version's per-block triangle counts: (sdf-and-weight term,
+    colour term, blocks that hold a triangle). Each active pool row is read
+    once (a halo corner is another active row's voxel, counted there): sdf
+    and weight of every row; colour only of the rows of blocks that hold a
+    triangle and of the halo faces those blocks take from their other
+    neighbours. The 72 B per triangle are added by the caller."""
+    from onepiece_tpu_torch.ops import marching_cubes as mc
+
+    fields = mc._pool_fields(vox)
+    counts = []
+    for s in range(0, slots.shape[0], mc.DEFAULT_CHUNK):
+        own = [mc.gather_neighbors(f, slots[s : s + mc.DEFAULT_CHUNK, None], fill)[:, 0]
+               for f, fill in zip(fields, mc.FILLS)]
+        nb = [mc.gather_neighbors(f, nbr[s : s + mc.DEFAULT_CHUNK], fill) for f, fill in zip(fields, mc.FILLS)]
+        valid = mc.extract_block_triangles_reference(*own, *nb, coords[s : s + mc.DEFAULT_CHUNK], voxel_size)[2]
+        counts.append(valid.sum((1, 2)))
+    meshed = torch.cat(counts) > 0
+    need = torch.zeros((vox.shape[0], 8, 8, 8), dtype=torch.bool, device=vox.device)  # colour voxels read
+    need[slots[meshed].long()] = True
+    for k, off in enumerate(mc.NEIGHBOR_OFFSETS.tolist()):
+        rows = nbr[meshed, k]
+        need[(rows[rows >= 0].long(),) + tuple(0 if o else slice(None) for o in off)] = True
+    n_meshed = int(meshed.sum())
+    return (slots.shape[0] * MC_BYTES_PER_BLOCK, int(need.sum()) * MC_BYTES_PER_COLOUR_VOXEL
+            + n_meshed * MC_BYTES_PER_MESHED_BLOCK, n_meshed)
+
+
+def mesh_phase(cam, dev, scene, card, poses, grays, depths, fused, dslam, s_grays, s_depths, slam_gt) -> dict:
+    """Phase 8: the marching-cubes kernel against its plain version on the
+    fused volumes, then the three reconstruction paths with counted launches."""
+    import os
+    import tempfile
+
+    from onepiece_tpu_torch import _build
+    from onepiece_tpu_torch.integration.blocks import TSDFVolume, neighbor_slots_device
+    from onepiece_tpu_torch.io import trajectory as traj
+    from onepiece_tpu_torch.io.ply import dedup_triangle_soup, read_ply, write_ply_mesh
+    from onepiece_tpu_torch.odometry import dense
+    from onepiece_tpu_torch.ops import marching_cubes as mc
+    from onepiece_tpu_torch.ops.image import bilateral_filter
+    from onepiece_tpu_torch.systems.pipeline import PipelinedDenseFusion
+
+    # -- the kernel against its plain version, gray and rgb volumes --
+    res, err8 = {}, 0.0
+    for form, s in fused.items():
+        vol = s.to_volume()
+        na = vol.num_active
+        coords = torch.from_numpy(vol.active_coords()).to(dev, torch.int32)
+        nbr = neighbor_slots_device(coords)
+        args = (vol.vox, torch.arange(na, dtype=torch.int32, device=dev), nbr, coords, vol.voxel_size)
+        vk, ck = mc.extract_triangles(*args)
+        vp, cp = mc.extract_triangles_reference(*args)
+        torch.cuda.synchronize()
+        if vk.shape != vp.shape:
+            raise AssertionError(f"marching_cubes {form}: {vk.shape[0]} triangles, plain version {vp.shape[0]}")
+        err = max(float((vk - vp).abs().max()), float((ck - cp).abs().max())) if vk.shape[0] else 0.0
+        if not err <= 1e-6:
+            raise AssertionError(f"marching_cubes {form}: max abs err {err} against the plain version")
+        err8 = max(err8, err)
+        ms = device_ms(lambda: mc.extract_triangles(*args), ("mc_count_kernel", "mc_emit_kernel"))
+        count_ms = device_ms(lambda: mc.extract_triangles(*args), ("mc_count_kernel",))
+        event_ms = cuda_ms(lambda: mc.extract_triangles(*args))
+        plain_ms = cuda_ms(lambda: mc.extract_triangles_reference(*args), reps=3, warmup=1)
+        n_tri = vk.shape[0]
+        sdf_bytes, colour_bytes, meshed = mc_bytes(*args)
+        b = bound(sdf_bytes + colour_bytes + n_tri * MC_BYTES_PER_TRIANGLE,
+                  MC_OPS_PER_VOXEL * 512 * na + MC_OPS_PER_TRIANGLE * n_tri)
+        res[form] = dict(ms=ms, event_ms=event_ms, plain_ms=plain_ms, count_ms=count_ms, **b)
+        print(f"marching_cubes {form}: {na} blocks ({meshed} with triangles), {n_tri} triangles, equal to the "
+              f"plain version in order (max abs err {err:.3g}); kernel {ms:.4f} ms on the device (count pass "
+              f"{count_ms:.4f}; {event_ms:.4f} ms by events, one host read between the passes), plain "
+              f"{plain_ms:.2f} ms, bound {b['bound_ms']:.5f} ms ({b['bound_by']}: {sdf_bytes} B of slots, sdf "
+              f"and weight, {colour_bytes} B of colour and coords, {n_tri * MC_BYTES_PER_TRIANGLE} B of "
+              f"triangles), roofline share {b['bound_ms'] / ms:.3f}", flush=True)
+        del vk, ck, vp, cp
+    kernel = dict(max_abs_err=err8, **res["gray"], rgb_ms=res["rgb"]["ms"], rgb_plain_ms=res["rgb"]["plain_ms"],
+                  rgb_bound_ms=res["rgb"]["bound_ms"])
+
+    zero = {k.name: 0 for k in _build.KERNELS}
+    launches = []
+    with tempfile.TemporaryDirectory() as tmp:
+
+        def mesh(name, vol, T_world, max_median, max_p90):
+            """extract_mesh -> dedup -> PLY, vertices held against the scene."""
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            tv, tc = vol.extract_mesh()
+            mesh_ms = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            verts, faces, cols = dedup_triangle_soup(tv, tc)
+            path = os.path.join(tmp, f"{name}.ply")
+            write_ply_mesh(path, verts, faces, colors=cols)
+            ply_ms = (time.perf_counter() - t) * 1e3
+            back = read_ply(path)
+            med, p90 = scene_distance(scene, tv, T_world, dev)
+            if not (len(faces) > 1000 and len(back["faces"]) == len(faces) and np.isfinite(verts).all()
+                    and med < max_median and p90 < max_p90):
+                raise AssertionError(f"{name} mesh: {len(faces)} faces ({len(back['faces'])} read back), "
+                                     f"|scene sdf| median {med} (< {max_median}), p90 {p90} (< {max_p90})")
+            print(f"{name} mesh: {len(tv)} triangles -> {len(verts)} vertices, {len(faces)} faces; extract_mesh "
+                  f"{mesh_ms:.1f} ms, dedup + PLY {ply_ms:.1f} ms; |scene sdf| at the vertices median "
+                  f"{med * 1e3:.3f} mm, p90 {p90 * 1e3:.3f} mm", flush=True)
+
+        # -- the fused volumes of phase 5 --
+        _build.reset_launch_counts()
+        for form, s in fused.items():
+            mesh(f"fused {form}", s.to_volume(), poses[0], s.voxel_size / 2, s.voxel_size)
+        launches.append(counted({**zero, "marching_cubes": len(fused)}, "fused meshes"))
+
+        # -- DenseFusion's post-hoc reconstruction at DenseSlam's optimised poses --
+        _build.reset_launch_counts()
+        est = dslam.trajectory()
+        vol = TSDFVolume(voxel_size=DENSE_FUSION_VOXEL, truncation=DENSE_FUSION_VOXEL * 5, device=dev)
+        kept = range(0, len(est), DENSE_FUSION_STRIDE)
+        for f in kept:
+            vol.integrate(bilateral_filter(s_depths[f]), s_grays[f][..., None].expand(-1, -1, 3), est[f], cam)
+        print(f"DenseFusion post-hoc: {len(kept)} frames integrated, {vol.num_active} blocks", flush=True)
+        mesh("DenseFusion", vol, slam_gt[0], DENSE_FUSION_VOXEL, 2 * DENSE_FUSION_VOXEL)
+        launches.append(counted({**zero, "tsdf_integrate": len(kept), "marching_cubes": 1}, "DenseFusion"))
+        del vol
+
+        # -- PipelinedDenseFusion on the orbit --
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pipe = PipelinedDenseFusion(cam, dev)
+        for g, d in zip(grays, depths):
+            pipe.process_frame(g, d)
+        est_p, _ = pipe.finalize()
+        torch.cuda.synchronize()
+        pipe_ms = (time.perf_counter() - t) * 1e3 / len(grays)
+        ate = traj.ate_rmse(est_p, poses)
+        if not (np.isfinite(est_p).all() and ate <= MAX_ATE_M):
+            raise AssertionError(f"PipelinedDenseFusion ATE {ate} m > {MAX_ATE_M} m (or non-finite poses)")
+        print(f"PipelinedDenseFusion {cam.width}x{cam.height} x {len(grays)} frames: ATE {ate * 1e3:.4f} mm, {pipe.volume.num_active} "
+              f"blocks, {pipe_ms:.3f} ms/frame (one run, integration one frame late) on {card}", flush=True)
+        mesh("pipeline", pipe.volume, poses[0], pipe.voxel_size / 2, pipe.voxel_size)
+        launches.append(counted({**zero, "tsdf_integrate": len(grays), "marching_cubes": 1,
+                                 "dense_normal_eq": sum(dense.DEFAULT_ITERS) * (len(grays) - 1)}, "pipeline"))
+    return dict(kernel=kernel, launches=launches)
 
 
 def main() -> int:
@@ -396,12 +579,13 @@ def main() -> int:
         return s, est, (time.perf_counter() - t) * 1e3 / N_FRAMES
 
     run()  # warm: allocator, kernel library, cuBLAS/cuSOLVER handles
-    slice_launches, slice_runs = {}, {}
+    slice_launches, slice_runs, slice_slams = {}, {}, {}
     for form, colour in (("gray", None), ("rgb", rgbs)):
         _build.reset_launch_counts()
         slam, est, _ = run(forbid_syncs=True, colour=colour)
         launches = {k.name: k.launches for k in _build.KERNELS}
-        expect = {"tsdf_integrate": N_FRAMES, "dense_normal_eq": sum(slam.iters) * (N_FRAMES - 1), "nn1": 0}
+        expect = {"tsdf_integrate": N_FRAMES, "dense_normal_eq": sum(slam.iters) * (N_FRAMES - 1), "nn1": 0,
+                  "marching_cubes": 0}
         if launches != expect:
             raise AssertionError(f"{form} slice: kernel launches on the main path {launches}, expected {expect}")
         slice_launches[form] = launches
@@ -424,6 +608,7 @@ def main() -> int:
               f"p95 {np.percentile(times, 95):.3f} (runs {[round(t, 3) for t in times]}) on {card}",
               flush=True)
         slice_runs[form] = (est, slam._state.vox[body])
+        slice_slams[form] = slam  # meshed in phase 8
         del slam, vol
     # tracking reads gray only: the rgb run has the gray run's poses, sdf and
     # weights, bit for bit; only its colours differ
@@ -433,7 +618,7 @@ def main() -> int:
     if torch.equal(vox_c[:, 2:], vox_g[:, 2:]):
         raise AssertionError("rgb slice: the colours are the gray run's")
     print("slice rgb: poses, sdf and weights bit-equal to the gray run's; colours differ", flush=True)
-    del frames, depths, grays, rgbs, slice_runs, vox_g, vox_c
+    del frames, rgbs, slice_runs, vox_g, vox_c
 
     # ---- 6. DenseSlam warm run; nn1 vs plain at its ICP shapes ------------
     from onepiece_tpu_torch.ops import nn1 as nn1_ops
@@ -498,17 +683,18 @@ def main() -> int:
     slam_launches = {k.name: k.launches for k in _build.KERNELS}
     n_icp = len(icp_syncs)
     expect = {"tsdf_integrate": 0, "dense_normal_eq": sum(dense.DEFAULT_ITERS) * (SLAM_FRAMES - 1),
-              "nn1": (icp.DEFAULT_ITERS + 1) * n_icp}
+              "nn1": (icp.DEFAULT_ITERS + 1) * n_icp, "marching_cubes": 0}
     if slam_launches != expect:
         raise AssertionError(f"DenseSlam kernel launches {slam_launches}, expected {expect} ({n_icp} ICP calls)")
     est = slam.trajectory()
     ate = traj.ate_rmse(est, slam_gt)
-    if not (np.isfinite(est).all() and ate <= MAX_SLAM_ATE_M):
-        raise AssertionError(f"DenseSlam ATE {ate} m > {MAX_SLAM_ATE_M} m (or non-finite poses)")
     flags = [m["icp_ok"] for m in slam.metrics if "icp_ok" in m]
+    loops = [(e["src"], e["dst"]) for e in slam.edges if e["src"] - e["dst"] > 1]
+    if not (np.isfinite(est).all() and ate <= MAX_SLAM_ATE_M):
+        raise AssertionError(f"DenseSlam ATE {ate} m > {MAX_SLAM_ATE_M} m (or non-finite poses); icp_ok {flags}, "
+                             f"edges {[(e['src'], e['dst']) for e in slam.edges]}, loop edges {loops}")
     if not (len(flags) == SLAM_FRAMES // slam.submap_size and all(flags[1:])):
         raise AssertionError(f"DenseSlam icp_ok per submap {flags}")
-    loops = [(e["src"], e["dst"]) for e in slam.edges if e["src"] - e["dst"] > 1]
     frame_syncs = (sc.count - sum(finish_syncs)) / SLAM_FRAMES
     runs = [run_slam(cam, dev, s_grays, s_depths) for _ in range(SLAM_TIMED_RUNS)]
     ms_frame = [r[1] for r in runs]
@@ -523,10 +709,15 @@ def main() -> int:
           f"(runs {[round(t, 3) for t in ms_frame]}); ms per _finish_submap: median "
           f"{np.median(finish_ms):.3f} (all {[round(t, 1) for t in finish_ms]}) on {card}", flush=True)
 
-    # no single PyTorch call computes any of the three functions
+    # ---- 8. meshing --------------------------------------------------------
+    phase8 = mesh_phase(cam, dev, scene, card, poses, grays, depths, slice_slams, slam, s_grays, s_depths, slam_gt)
+    results["marching_cubes"] = phase8["kernel"]
+    path_launches = [*slice_launches.values(), slam_launches, *phase8["launches"]]
+
+    # no single PyTorch call computes any of the four functions
     kernels = [
         dict(name=k.name, route="cuda", source=k.source, replaces=k.replaces,
-             launches=sum(n[k.name] for n in slice_launches.values()) + slam_launches[k.name],
+             launches=sum(n[k.name] for n in path_launches),
              **results[k.name],
              roofline_share=results[k.name]["bound_ms"] / results[k.name]["ms"], library_ms=None)
         for k in _build.KERNELS

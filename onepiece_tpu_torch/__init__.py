@@ -7,19 +7,22 @@ every kernelled function runs its hand-written CUDA kernel
 (`csrc/*.cu`, built by `_build.py`) on a CUDA tensor and its plain PyTorch
 version on a CPU tensor. There is no fallback from one to the other.
 
-Layout (the slices so far: the dense fusion loop `systems/fused_slam.py`
-and DenseSlam `systems/dense_slam.py`):
-  geometry/      SE(3) math, pinhole camera, Kabsch and normal fitting,
-                 fixed-capacity point clouds
+Layout (the slices so far: the dense fusion loop `systems/fused_slam.py`,
+DenseSlam `systems/dense_slam.py`, and meshing with the pipelined loop
+`systems/pipeline.py`):
+  geometry/      SE(3) math, pinhole camera (+ presets), Kabsch and normal
+                 fitting, fixed-capacity point clouds
   ops/           image ops, dense Gauss-Newton steps (kernel), TSDF keys and
                  pool integration (kernel), brute-force kNN, exact 1-NN
-                 (kernel), batched RANSAC
+                 (kernel), batched RANSAC, marching cubes (kernel) and its
+                 triangle table
   odometry/      frame pyramids + multi-scale dense tracking
-  integration/   device block hash, TSDFVolume container
+  integration/   device block hash, TSDFVolume (allocate, integrate,
+                 extract_mesh), volume_ops (save / load / merge / transform)
   registration/  ICP, FPFH, global (feature + RANSAC) registration
   optimization/  pose-graph Gauss-Newton
-  systems/       FusedDenseFusion, DenseSlam
-  io/            ATE / RPE
+  systems/       FusedDenseFusion, DenseSlam, PipelinedDenseFusion
+  io/            trajectory IO, ATE / RPE, PLY meshes
   utils/         synthetic SDF renderer with exact ground-truth poses
 """
 

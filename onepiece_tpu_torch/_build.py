@@ -68,7 +68,12 @@ NN1 = Kernel(
     "onepiece_tpu_torch/csrc/nn1.cu",
     "onepiece_tpu/ops/knn_pallas.py:69",
 )
-KERNELS = (TSDF_INTEGRATE, DENSE_NORMAL_EQ, NN1)
+MARCHING_CUBES = Kernel(
+    "marching_cubes",
+    "onepiece_tpu_torch/csrc/marching_cubes.cu",
+    "onepiece_tpu/ops/marching_cubes.py:82",
+)
+KERNELS = (TSDF_INTEGRATE, DENSE_NORMAL_EQ, NN1, MARCHING_CUBES)
 
 
 def reset_launch_counts() -> None:
@@ -149,6 +154,12 @@ _SIGNATURES = {
     ],
     # query, ref, ref_valid, N, M, out_idx, out_d2, part_d2, part_idx, chunks, stream
     "nn1": [_VP, _VP, _VP, _I, _I, _VP, _VP, _VP, _VP, _I, _VP],
+    # triangle table (256, 5, 3) int8, counts (256,) uint8, edge corners (12, 2) int8 (host)
+    "mc_set_tables": [_VP, _VP, _VP],
+    # vox, slots, nbr, B, rows, iso, counts, stream
+    "mc_count": [_VP, _VP, _VP, _I, _I, _F, _VP, _VP],
+    # vox, slots, nbr, coords, B, rows, voxel, iso, ends, verts, colors, stream
+    "mc_emit": [_VP, _VP, _VP, _VP, _I, _I, _F, _F, _VP, _VP, _VP, _VP],
 }
 
 _lib: ctypes.CDLL | None = None

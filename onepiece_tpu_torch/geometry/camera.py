@@ -38,6 +38,14 @@ class PinholeCamera:
             cams.append(cams[-1].next_pyramid_level())
         return tuple(cams)
 
+    def project(self, pts: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Camera-frame points (..., 3) -> pixel coords (..., 2) [u, v], depth (...,)."""
+        z = pts[..., 2]
+        zsafe = torch.where(torch.abs(z) > 1e-9, z, 1e-9)
+        u = pts[..., 0] / zsafe * self.fx + self.cx
+        v = pts[..., 1] / zsafe * self.fy + self.cy
+        return torch.stack([u, v], dim=-1), z
+
     def backproject_grid(self, depth: torch.Tensor) -> torch.Tensor:
         """Depth image (H, W) -> camera-frame XYZ image (H, W, 3)."""
         h, w = depth.shape
@@ -48,7 +56,15 @@ class PinholeCamera:
         return torch.stack([x, y, depth], dim=-1)
 
 
-# TUM fr1 intrinsics (the JAX package's preset; distortion is ignored there too)
+# The JAX package's preset intrinsics (distortion is ignored there too)
 TUM_CAMERA = PinholeCamera(
     fx=517.3, fy=516.5, cx=318.6, cy=255.3, width=640, height=480, depth_scale=5000.0
 )
+OPEN3D_CAMERA = PinholeCamera(
+    fx=514.817, fy=515.375, cx=318.771, cy=238.447, width=640, height=480, depth_scale=1000.0
+)
+MI_CAMERA = PinholeCamera(
+    fx=2209.84366, fy=2210.23057, cx=756.24762, cy=530.00418, width=1440, height=1080, depth_scale=1000.0
+)
+
+PRESETS = {"tum": TUM_CAMERA, "open3d": OPEN3D_CAMERA, "mi": MI_CAMERA}

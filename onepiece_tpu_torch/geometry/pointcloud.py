@@ -122,8 +122,10 @@ def _voxel_keys(pts: torch.Tensor, valid: torch.Tensor, voxel_size: float) -> to
 def voxel_downsample(cloud: PointCloud, voxel_size: float) -> PointCloud:
     """Voxel-grid average: one averaged point (and normal, colour) per
     occupied voxel, in key order at the front of a cloud of the input's
-    capacity. A stable sort of the keys, then segment sums with
-    `index_add_`; no host round trip."""
+    capacity. A stable sort of the keys, then segment sums in point order
+    (`segment_reduce`: the same sums on every run and on every device, where
+    `index_add_`'s float atomics on the card add in another order each
+    run); no host round trip."""
     cap = cloud.capacity
     dev = cloud.device
     key = _voxel_keys(cloud.points, cloud.valid, voxel_size)
@@ -131,19 +133,15 @@ def voxel_downsample(cloud: PointCloud, voxel_size: float) -> PointCloud:
     seg_start = torch.ones_like(key_s, dtype=torch.bool)
     seg_start[1:] = key_s[1:] != key_s[:-1]
     seg_id = (torch.cumsum(seg_start.to(torch.int32), 0) - 1).to(torch.int64)
-    cnt = torch.zeros(cap, dtype=torch.float32, device=dev)
-    cnt.index_add_(0, seg_id, torch.ones_like(key_s, dtype=torch.float32))
-    cnt = torch.clamp(cnt[:, None], min=1.0)
-
-    def seg_mean(x):
-        s = torch.zeros((cap, x.shape[1]), dtype=x.dtype, device=dev)
-        return s.index_add_(0, seg_id, x[order]) / cnt
-
-    new_pts = seg_mean(cloud.points)
-    new_nrm = seg_mean(cloud.normals)
+    # points per segment, 0 past the last: integer sums, exact in any order
+    lengths = torch.zeros(cap, dtype=torch.int64, device=dev).index_add_(0, seg_id, torch.ones_like(seg_id))
+    cnt = torch.clamp(lengths[:, None].to(torch.float32), min=1.0)
+    # lengths sum to cap and none is negative, so the checks (host syncs) are skipped
+    fields = torch.cat([cloud.points, cloud.normals, cloud.colors], 1)[order]
+    sums = torch.segment_reduce(fields, "sum", lengths=lengths, axis=0, unsafe=True)
+    new_pts, new_nrm, new_col = (x.contiguous() for x in (sums / cnt).split(3, 1))
     nnorm = torch.linalg.norm(new_nrm, dim=-1, keepdim=True)
     new_nrm = torch.where(nnorm > 1e-9, new_nrm / torch.clamp(nnorm, min=1e-9), new_nrm)
-    new_col = seg_mean(cloud.colors)
     num_segs = torch.sum(seg_start & (key_s < _KEY_PAD))
     new_valid = torch.arange(cap, device=dev) < num_segs
     return PointCloud(new_pts, new_nrm, new_col, new_valid)

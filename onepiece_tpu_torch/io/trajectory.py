@@ -1,9 +1,22 @@
-"""Trajectory evaluation (numpy). Copy of the jax-free evaluation helpers of
-`onepiece_tpu/io/trajectory.py`."""
+"""Trajectory IO and evaluation (numpy). Copy of the jax-free matrix
+trajectory IO and evaluation helpers of `onepiece_tpu/io/trajectory.py`."""
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def write_matrix_trajectory(path: str, poses: np.ndarray) -> None:
+    """Write (N, 4, 4) poses as 16-float rows."""
+    flat = np.asarray(poses).reshape(len(poses), 16)
+    np.savetxt(path, flat, fmt="%.9f")
+
+
+def read_matrix_trajectory(path: str) -> np.ndarray:
+    flat = np.loadtxt(path)
+    if flat.ndim == 1:
+        flat = flat[None]
+    return flat.reshape(-1, 4, 4)
 
 
 def align_umeyama(est: np.ndarray, gt: np.ndarray, with_scale: bool = False) -> np.ndarray:

@@ -175,6 +175,13 @@ def touched_block_keys(
     return unique_padded(keys, max_blocks)
 
 
+def pack_block_keys(coords: torch.Tensor) -> torch.Tensor:
+    """(..., 3) int block coords -> packed int32 keys, 10 bits per axis, as
+    `touched_block_keys` packs them; coords outside [-512, 511] clamp."""
+    c = torch.clamp(coords.to(torch.int32) + 512, 0, 1023)
+    return (c[..., 0] << 20) | (c[..., 1] << 10) | c[..., 2]
+
+
 def unpack_block_keys(keys) -> np.ndarray:
     """Host helper: packed keys -> (N, 3) int64 coords, dropping fill slots."""
     k = np.asarray(keys)

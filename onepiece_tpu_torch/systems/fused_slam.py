@@ -268,16 +268,14 @@ class FusedDenseFusion:
         return int(torch.stack(self._sat).sum()) if self._sat else 0
 
     def to_volume(self) -> TSDFVolume:
-        """The pool as a TSDFVolume: blocks by slot, with their coords."""
+        """The live pool as a TSDFVolume (no copy): block i at slot i, as the
+        hash table allocated them. One fetch of the block coords. The volume
+        shares the pool, so frames processed later change its voxels but
+        not its block list: call again after them."""
         st = self._state
         if st is None:
             raise RuntimeError("to_volume before any frame was processed")
-        sdf, weight, color = tsdf_slots.pool_to_blocks(st.vox)
         na = int(st.table.num_active)
-        block_coords = np.zeros((self.capacity, 3), np.int64)
-        block_coords[:na] = st.table.block_coords[:na].cpu().numpy()
-        return TSDFVolume(
-            sdf=sdf, weight=weight, color=color, block_coords=block_coords,
-            slot_of={tuple(c): i for i, c in enumerate(block_coords[:na].tolist())},
-            num_active=na, voxel_size=self.voxel_size, truncation=self.truncation,
-        )
+        vol = TSDFVolume(self.voxel_size, self.truncation, max_weight=MAX_WEIGHT, vox=st.vox)
+        vol.allocate(st.table.block_coords[:na].cpu().numpy())
+        return vol

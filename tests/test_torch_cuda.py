@@ -15,7 +15,8 @@ equal and T within 1e-5 (sums in another order, sinf / cosf against
 torch's); a whole 3-level tracking, kernel route against the plain route on
 the card, within 1e-3 (the hard depth gate can flip an inlier and carry a
 2e-7 difference to ~4e-4); nn1 indices equal and squared distances
-bit-equal (same expression, same order). The kernels are
+bit-equal (same expression, same order); marching cubes: the same
+triangles in the same order, bit-equal. The kernels are
 built without implicit FMA contraction (the TSDF transform's FMAs are
 explicit, and its plain version makes the same ones), so per-element
 arithmetic rounds as the plain versions' does and only the order of the
@@ -30,9 +31,12 @@ from onepiece_tpu_torch import _build
 from onepiece_tpu_torch.geometry import se3
 from onepiece_tpu_torch.geometry.camera import TUM_CAMERA
 from onepiece_tpu_torch.integration import device_hash as dh
+from onepiece_tpu_torch.integration.blocks import TSDFVolume, neighbor_slots_device
 from onepiece_tpu_torch.odometry import dense
 from onepiece_tpu_torch.io import trajectory as traj
+from onepiece_tpu_torch.io.ply import dedup_triangle_soup
 from onepiece_tpu_torch.ops import dense_odometry as dops
+from onepiece_tpu_torch.ops import marching_cubes as mc
 from onepiece_tpu_torch.ops import nn1 as nn1_ops
 from onepiece_tpu_torch.ops import tsdf as tsdf_ops
 from onepiece_tpu_torch.ops import tsdf_slots
@@ -256,7 +260,7 @@ def test_slice_on_the_card_matches_cpu(dev, frames):
     on_card.process_chunk(g, d)
     est_card, _ = on_card.finalize()
     assert {k.name: k.launches for k in _build.KERNELS} == {
-        "tsdf_integrate": 4, "dense_normal_eq": 3 * sum(on_card.iters), "nn1": 0}
+        "tsdf_integrate": 4, "dense_normal_eq": 3 * sum(on_card.iters), "nn1": 0, "marching_cubes": 0}
     on_cpu = FusedDenseFusion(cam, device="cpu", **kw)
     on_cpu.process_chunk(g.cpu(), d.cpu())
     est_cpu, _ = on_cpu.finalize()
@@ -348,15 +352,28 @@ def test_nn1_rejects_what_the_kernel_does_not_take(dev):
         nn1_ops.nn1(q, r.cpu(), v)
 
 
-def test_dense_slam_on_the_card(dev):
-    """DenseSlam at 160x120, 12 frames in submaps of 4: every ICP iteration
-    (and the final scoring pass) launches the nn1 kernel once; the card's
-    run keeps the CPU run's decisions and poses."""
+@pytest.fixture(scope="module")
+def slam_frames(dev):
+    """The 12-frame 160x120 orbit: (poses, grays, depths)."""
     poses = synthetic.orbit_trajectory(12)
     scene = synthetic.default_scene(dev)
     out = [synthetic.render(scene, torch.from_numpy(p).to(dev), CAM.fx, CAM.fy, CAM.cx, CAM.cy,
                             CAM.height, CAM.width, num_steps=64) for p in poses]
-    depths, grays = torch.stack([d for d, _ in out]), torch.stack([g for _, g in out])
+    return poses, torch.stack([g for _, g in out]), torch.stack([d for d, _ in out])
+
+
+def _dense_slam(dev, grays, depths):
+    slam = DenseSlam(CAM, dev, submap_size=4)
+    for g, d in zip(grays, depths):
+        slam.update_frame(g, d)
+    return slam
+
+
+def test_dense_slam_on_the_card(dev, slam_frames):
+    """DenseSlam at 160x120, 12 frames in submaps of 4: every ICP iteration
+    (and the final scoring pass) launches the nn1 kernel once; the card's
+    run keeps the CPU run's decisions and poses."""
+    poses, grays, depths = slam_frames
     icp_calls = []
     point_to_point = icp.point_to_point
 
@@ -367,20 +384,191 @@ def test_dense_slam_on_the_card(dev):
     icp.point_to_point = counted
     try:
         _build.reset_launch_counts()
-        on_card = DenseSlam(CAM, dev, submap_size=4)
-        for g, d in zip(grays, depths):
-            on_card.update_frame(g, d)
+        on_card = _dense_slam(dev, grays, depths)
     finally:
         icp.point_to_point = point_to_point
     launches = {k.name: k.launches for k in _build.KERNELS}
     assert len(icp_calls) >= 2
     assert launches == {"tsdf_integrate": 0, "dense_normal_eq": 11 * sum(dense.DEFAULT_ITERS),
-                        "nn1": (icp.DEFAULT_ITERS + 1) * len(icp_calls)}
-    on_cpu = DenseSlam(CAM, "cpu", submap_size=4)
-    for g, d in zip(grays.cpu(), depths.cpu()):
-        on_cpu.update_frame(g, d)
+                        "nn1": (icp.DEFAULT_ITERS + 1) * len(icp_calls), "marching_cubes": 0}
+    on_cpu = _dense_slam("cpu", grays.cpu(), depths.cpu())
     flags = [[m["icp_ok"] for m in s.metrics if "icp_ok" in m] for s in (on_card, on_cpu)]
     assert flags[0] == flags[1] == [False, True, True]
     assert len(on_card.edges) == len(on_cpu.edges)
     assert np.abs(on_card.trajectory() - on_cpu.trajectory()).max() <= 1e-3
     assert traj.ate_rmse(on_card.trajectory(), poses) <= 0.01
+
+
+def test_dense_slam_on_the_card_repeats_bit_for_bit(dev, slam_frames):
+    """Two DenseSlam runs on the same frames give the same trajectory, edges
+    and submap clouds to the last bit: nothing on the path sums in an order
+    that changes from run to run (`voxel_downsample` sums in point order)."""
+    _, grays, depths = slam_frames
+    a, b = (_dense_slam(dev, grays, depths) for _ in range(2))
+    assert np.array_equal(a.trajectory(), b.trajectory())
+    assert [(e["src"], e["dst"]) for e in a.edges] == [(e["src"], e["dst"]) for e in b.edges]
+    assert len(a.submap_clouds) == len(b.submap_clouds) == 3
+    for ca, cb in zip(a.submap_clouds, b.submap_clouds):
+        for field in ("points", "normals", "colors", "valid"):
+            assert torch.equal(getattr(ca, field), getattr(cb, field))
+
+
+def _mc_pool(dev, sdf, weight, seed=0):
+    """A pool of len(sdf) blocks (+ trash row) with the given (P, 512) sdf and
+    weights and seeded uniform colour."""
+    p = sdf.shape[0]
+    pool = tsdf_slots.make_pool(p, dev)
+    pool[:p, 0] = torch.as_tensor(sdf, dtype=torch.float32, device=dev)
+    pool[:p, 1] = torch.as_tensor(weight, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    pool[:p, 2:5] = torch.rand((p, 3, 512), generator=gen).to(dev)
+    return pool
+
+
+def _grid(n):
+    """Block coords of an n x n x n grid and each block's 7 neighbour slots."""
+    coords = np.array([[x, y, z] for x in range(n) for y in range(n) for z in range(n)])
+    slot_of = {tuple(c): i for i, c in enumerate(coords.tolist())}
+    nbr = np.array([[slot_of.get(tuple(c + o), -1) for o in mc.NEIGHBOR_OFFSETS.tolist()] for c in coords.tolist()])
+    return coords, nbr
+
+
+def _mc_kernel_vs_plain(pool, slots, nbr, coords, voxel=0.05, launched=1):
+    dev = pool.device
+    args = (pool, torch.as_tensor(slots, dtype=torch.int32, device=dev),
+            torch.as_tensor(nbr, dtype=torch.int32, device=dev),
+            torch.as_tensor(coords, dtype=torch.int32, device=dev), voxel)
+    before = _build.MARCHING_CUBES.launches
+    vk, ck = mc.extract_triangles(*args)
+    vp, cp = mc.extract_triangles_reference(*args)
+    torch.cuda.synchronize()
+    assert _build.MARCHING_CUBES.launches == before + launched
+    assert vk.shape == vp.shape and ck.shape == cp.shape
+    assert torch.equal(vk, vp) and torch.equal(ck, cp)
+    return vk
+
+
+def _configs(sdf_grid, w_grid):
+    """Marching-cubes cases of the meshable voxels of a (X, Y, Z) corner grid."""
+    n = np.array(sdf_grid.shape) - 1
+    cfg = np.zeros(tuple(n), np.int64)
+    ok = np.ones(tuple(n), bool)
+    for c in range(8):
+        dx, dy, dz = c & 1, (c >> 1) & 1, (c >> 2) & 1
+        s = sdf_grid[dx:dx + n[0], dy:dy + n[1], dz:dz + n[2]]
+        ok &= (w_grid[dx:dx + n[0], dy:dy + n[1], dz:dz + n[2]] > 0) & (np.abs(s) < 1.5)
+        cfg |= (s < 0).astype(np.int64) << c
+    return cfg[ok]
+
+
+def test_mc_kernel_all_256_cases(dev):
+    """4x4x4 blocks of random-sign sdf (|sdf| in [0.05, 1]): every one of the
+    256 cases occurs, and the kernel equals the plain version."""
+    rng = np.random.default_rng(0)
+    coords, nbr = _grid(4)
+    sdf = rng.uniform(0.05, 1.0, (64, 512)) * rng.choice([-1.0, 1.0], (64, 512))
+    pool = _mc_pool(dev, sdf, np.ones((64, 512)))
+    full = np.zeros((33, 33, 33))  # the grid's corner field; the far faces have no neighbour
+    for (x, y, z), s in zip(coords.tolist(), sdf.reshape(64, 8, 8, 8)):
+        full[8 * x:8 * x + 8, 8 * y:8 * y + 8, 8 * z:8 * z + 8] = s
+    w = np.zeros((33, 33, 33))
+    w[:32, :32, :32] = 1.0
+    assert len(np.unique(_configs(full, w))) == 256
+    vk = _mc_kernel_vs_plain(pool, np.arange(64), nbr, coords)
+    assert vk.shape[0] > 50000
+
+
+def test_mc_kernel_every_halo_region_absent_or_present(dev):
+    """One block copied 128 times, each copy with another subset of its 7
+    neighbours (faces, edges, corner) absent."""
+    rng = np.random.default_rng(1)
+    sdf = rng.uniform(-1.2, 1.2, (8, 512))
+    weight = rng.integers(1, 3, (8, 512)).astype(np.float64)
+    pool = _mc_pool(dev, sdf, weight)
+    masks = np.array([[(m >> j) & 1 for j in range(7)] for m in range(128)], bool)
+    nbr = np.where(masks, np.arange(1, 8)[None], -1)
+    coords = rng.integers(-40, 40, (128, 3))
+    vk = _mc_kernel_vs_plain(pool, np.zeros(128, np.int64), nbr, coords)
+    assert vk.shape[0] > 128 * 200
+
+
+def test_mc_kernel_zero_weights_one_block_and_empty(dev):
+    rng = np.random.default_rng(2)
+    sdf = rng.uniform(-1.0, 1.0, (27, 512))
+    weight = rng.integers(0, 2, (27, 512)).astype(np.float64)  # half the corners unobserved
+    coords, nbr = _grid(3)
+    pool = _mc_pool(dev, sdf, weight)
+    some = _mc_kernel_vs_plain(pool, np.arange(27), nbr, coords)
+    assert some.shape[0] > 0
+    one = _mc_kernel_vs_plain(pool, [13], nbr[13:14], coords[13:14])  # one block, with neighbours
+    assert 0 < one.shape[0] < some.shape[0]
+    empty = _mc_pool(dev, np.full((27, 512), tsdf_ops.EMPTY_SDF), np.zeros((27, 512)))
+    assert _mc_kernel_vs_plain(empty, np.arange(27), nbr, coords).shape == (0, 3, 3)  # T = 0
+    none = _mc_kernel_vs_plain(pool, np.zeros(0), np.zeros((0, 7)), np.zeros((0, 3)), launched=0)  # B = 0
+    assert none.shape == (0, 3, 3)
+
+
+def test_mc_kernel_rejects_what_it_does_not_take(dev):
+    pool = tsdf_slots.make_pool(4, dev)
+    slots = torch.zeros(2, dtype=torch.int32, device=dev)
+    nbr = torch.full((2, 7), -1, dtype=torch.int32, device=dev)
+    coords = torch.zeros((2, 3), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        mc.extract_triangles(pool, slots.long(), nbr, coords, 0.05)
+    with pytest.raises(ValueError, match="shape"):
+        mc.extract_triangles(pool, slots, nbr[:, :6].contiguous(), coords, 0.05)
+    with pytest.raises(ValueError, match="on cpu"):
+        mc.extract_triangles(pool, slots, nbr, coords.cpu(), 0.05)
+
+
+def _sphere_volume(dev):
+    """The analytic sphere (r 0.5 at the origin) over 4x4x4 blocks of 0.05 m
+    voxels, weight 1 everywhere: a closed surface inside the blocks."""
+    vol = TSDFVolume(voxel_size=0.05, truncation=10.0, capacity=256, device=dev)
+    vol.allocate(np.array([[x, y, z] for x in range(-2, 2) for y in range(-2, 2) for z in range(-2, 2)]))
+    n = vol.num_active
+    centers = tsdf_ops.voxel_centers_world(torch.from_numpy(vol.active_coords()).to(dev), vol.voxel_size)
+    vol.vox[:n, 0] = torch.clamp((torch.linalg.norm(centers, dim=-1) - 0.5) / vol.truncation, -1, 1)
+    vol.vox[:n, 1] = 1.0
+    return vol
+
+
+def test_mc_kernel_sphere_is_watertight(dev):
+    vol = _sphere_volume(dev)
+    before = _build.MARCHING_CUBES.launches
+    tv, tc = vol.extract_mesh()
+    assert _build.MARCHING_CUBES.launches == before + 1
+    verts, faces, _ = dedup_triangle_soup(tv, tc)
+    assert len(faces) > 100 and np.abs(np.linalg.norm(verts, axis=-1) - 0.5).max() < 0.06
+    edges = np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]], faces[:, [2, 0]]])
+    uniq, counts = np.unique(np.sort(edges, axis=1), axis=0, return_counts=True)
+    assert (counts == 2).all()
+    assert (np.unique(edges, axis=0, return_counts=True)[1] == 1).all()  # consistent winding
+    assert len(verts) - len(uniq) + len(faces) == 2  # Euler characteristic of a sphere
+    # the neighbour slots found on the card are the host dict's
+    nbr = neighbor_slots_device(torch.from_numpy(vol.active_coords()).to(dev))
+    np.testing.assert_array_equal(nbr.cpu().numpy(), vol._neighbor_slots())
+
+
+def test_volume_integrate_and_mesh_on_the_card_matches_cpu(dev, frames):
+    """TSDFVolume.integrate (TSDF kernel) then extract_mesh (marching-cubes
+    kernel) on the card against the same run with device="cpu"; and the
+    card's pool meshed by the plain version equals the kernel's mesh."""
+    poses, grays, depths = frames
+    vols = {}
+    _build.reset_launch_counts()
+    for d in (dev, "cpu"):
+        vol = TSDFVolume(voxel_size=0.02, truncation=0.1, capacity=1024, device=d)
+        for i in range(3):
+            vol.integrate(depths[i].to(d), grays[i].to(d)[..., None].expand(-1, -1, 3), poses[i], CAM)
+        vols[d if d == "cpu" else "cuda"] = (vol, vol.extract_mesh())
+    assert _build.TSDF_INTEGRATE.launches == 3 and _build.MARCHING_CUBES.launches == 1
+    (vk, (tvk, _)), (vc, (tvc, _)) = vols["cuda"], vols["cpu"]
+    assert abs(vk.num_active - vc.num_active) <= 0.01 * vc.num_active
+    assert abs(len(tvk) - len(tvc)) <= 0.02 * len(tvc) and len(tvk) > 5000
+    na = vk.num_active
+    coords = torch.from_numpy(vk.active_coords()).int()
+    vp, cp = mc.extract_triangles_reference(vk.vox.cpu(), torch.arange(na, dtype=torch.int32),
+                                            neighbor_slots_device(coords), coords, vk.voxel_size)
+    np.testing.assert_array_equal(tvk, vp.numpy())
+    np.testing.assert_array_equal(vols["cuda"][1][1], cp.numpy())
