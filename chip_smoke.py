@@ -33,14 +33,18 @@ Phases, in order; any failure exits non-zero before the final `ok` line:
      inside each ICP call; ms per frame over 3 runs and ms per
      _finish_submap
   8. meshing: the marching-cubes kernel vs its plain version on the fused
-     gray and rgb volumes of phase 5 (triangles equal, in order), timed;
+     gray and rgb volumes of phase 5 (triangles bit-equal, in order), timed;
      then, each with the launch counts at 0, the reconstruction paths:
-     `to_volume().extract_mesh()` of both phase-5 runs, `dedup_triangle_soup`
-     and `write_ply_mesh` to a temporary file, the vertices checked against
-     the synthetic scene's SDF; DenseFusion's post-hoc reconstruction of
-     phase 7 (every 8th frame at the optimised poses, voxel 0.02 m, through
-     `TSDFVolume.integrate`) and its mesh; `PipelinedDenseFusion` on the
-     16-frame orbit (ATE) and its mesh
+     `to_volume().extract_mesh_tensors()` of both phase-5 runs, the vertex
+     dedup on the card (`ops/mesh_dedup.py`, held bit-equal to the numpy
+     `dedup_triangle_soup` on every mesh), one copy to the host and
+     `write_ply_mesh` to a temporary file, each step timed, the vertices
+     checked against the synthetic scene's SDF; DenseFusion's post-hoc
+     reconstruction of phase 7 (every 8th frame at the optimised poses,
+     voxel 0.02 m, through `TSDFVolume.integrate`) and its mesh;
+     `PipelinedDenseFusion` on the 16-frame orbit (ATE) and its mesh. For
+     the last two, the largest count of distinct blocks a frame touches,
+     against the 4,096-key cap of their `touched_block_keys`
 Prints one JSON line of per-kernel results (launches: the counted runs of
 phases 5 (gray and rgb), 7 and 8 together; ms: the kernels' device time per
 wrapper call from the profiler; event_ms and plain_ms: CUDA events around
@@ -93,6 +97,8 @@ MC_BYTES_PER_COLOUR_VOXEL = 12  # r, g, b f32 of a voxel at a corner of a block 
 MC_BYTES_PER_TRIANGLE = 72  # 3 vertices and 3 colours of 3 f32
 DENSE_FUSION_VOXEL = 0.02  # tools/dense_fusion.py's post-hoc reconstruction
 DENSE_FUSION_STRIDE = 8
+INTEGRATE_KEY_CAP = 4096  # touched_block_keys' max_blocks in TSDFVolume.integrate and PipelinedDenseFusion
+KEY_COUNT_ROOM = 1 << 16  # room to count a frame's touched blocks without that cap
 
 
 def bound(n_bytes: float, n_ops: float) -> dict:
@@ -281,6 +287,20 @@ def mc_bytes(vox, slots, nbr, coords, voxel_size) -> tuple[int, int, int]:
             + n_meshed * MC_BYTES_PER_MESHED_BLOCK, n_meshed)
 
 
+def real_keys(depth_f, T_wc, cam, voxel_size: float, truncation: float) -> int:
+    """Distinct blocks one frame touches: the keys `TSDFVolume.integrate`
+    asks `touched_block_keys` for (stride 4), without its 4,096 cap."""
+    from onepiece_tpu_torch.ops import tsdf as tsdf_ops
+
+    keys = tsdf_ops.touched_block_keys(depth_f, torch.as_tensor(T_wc, dtype=torch.float32, device=depth_f.device),
+                                       cam.fx, cam.fy, cam.cx, cam.cy, voxel_size, truncation,
+                                       max_blocks=KEY_COUNT_ROOM)
+    n = int((keys != tsdf_ops.INVALID_KEY).sum())
+    if n >= KEY_COUNT_ROOM:
+        raise AssertionError(f"a frame touches {n} blocks or more: raise KEY_COUNT_ROOM")
+    return n
+
+
 def mesh_phase(cam, dev, scene, card, poses, grays, depths, fused, dslam, s_grays, s_depths, slam_gt) -> dict:
     """Phase 8: the marching-cubes kernel against its plain version on the
     fused volumes, then the three reconstruction paths with counted launches."""
@@ -294,10 +314,11 @@ def mesh_phase(cam, dev, scene, card, poses, grays, depths, fused, dslam, s_gray
     from onepiece_tpu_torch.odometry import dense
     from onepiece_tpu_torch.ops import marching_cubes as mc
     from onepiece_tpu_torch.ops.image import bilateral_filter
+    from onepiece_tpu_torch.ops.mesh_dedup import dedup_triangle_soup as dedup_on_device
     from onepiece_tpu_torch.systems.pipeline import PipelinedDenseFusion
 
     # -- the kernel against its plain version, gray and rgb volumes --
-    res, err8 = {}, 0.0
+    res = {}
     for form, s in fused.items():
         vol = s.to_volume()
         na = vol.num_active
@@ -307,12 +328,9 @@ def mesh_phase(cam, dev, scene, card, poses, grays, depths, fused, dslam, s_gray
         vk, ck = mc.extract_triangles(*args)
         vp, cp = mc.extract_triangles_reference(*args)
         torch.cuda.synchronize()
-        if vk.shape != vp.shape:
-            raise AssertionError(f"marching_cubes {form}: {vk.shape[0]} triangles, plain version {vp.shape[0]}")
-        err = max(float((vk - vp).abs().max()), float((ck - cp).abs().max())) if vk.shape[0] else 0.0
-        if not err <= 1e-6:
-            raise AssertionError(f"marching_cubes {form}: max abs err {err} against the plain version")
-        err8 = max(err8, err)
+        if not (vk.shape == vp.shape and torch.equal(vk, vp) and torch.equal(ck, cp)):
+            raise AssertionError(f"marching_cubes {form}: {vk.shape[0]} triangles, plain version {vp.shape[0]}, "
+                                 f"not bit-equal in order")
         ms = device_ms(lambda: mc.extract_triangles(*args), ("mc_count_kernel", "mc_emit_kernel"))
         count_ms = device_ms(lambda: mc.extract_triangles(*args), ("mc_count_kernel",))
         event_ms = cuda_ms(lambda: mc.extract_triangles(*args))
@@ -322,31 +340,39 @@ def mesh_phase(cam, dev, scene, card, poses, grays, depths, fused, dslam, s_gray
         b = bound(sdf_bytes + colour_bytes + n_tri * MC_BYTES_PER_TRIANGLE,
                   MC_OPS_PER_VOXEL * 512 * na + MC_OPS_PER_TRIANGLE * n_tri)
         res[form] = dict(ms=ms, event_ms=event_ms, plain_ms=plain_ms, count_ms=count_ms, **b)
-        print(f"marching_cubes {form}: {na} blocks ({meshed} with triangles), {n_tri} triangles, equal to the "
-              f"plain version in order (max abs err {err:.3g}); kernel {ms:.4f} ms on the device (count pass "
-              f"{count_ms:.4f}; {event_ms:.4f} ms by events, one host read between the passes), plain "
-              f"{plain_ms:.2f} ms, bound {b['bound_ms']:.5f} ms ({b['bound_by']}: {sdf_bytes} B of slots, sdf "
-              f"and weight, {colour_bytes} B of colour and coords, {n_tri * MC_BYTES_PER_TRIANGLE} B of "
-              f"triangles), roofline share {b['bound_ms'] / ms:.3f}", flush=True)
+        print(f"marching_cubes {form}: {na} blocks ({meshed} with triangles), {n_tri} triangles, bit-equal to "
+              f"the plain version in order; kernel {ms:.4f} ms on the device (count pass {count_ms:.4f}; "
+              f"{event_ms:.4f} ms by events, one host read between the passes), plain {plain_ms:.2f} ms, bound "
+              f"{b['bound_ms']:.5f} ms ({b['bound_by']}: {sdf_bytes} B of slots, sdf and weight, {colour_bytes} B "
+              f"of colour and coords, {n_tri * MC_BYTES_PER_TRIANGLE} B of triangles), roofline share "
+              f"{b['bound_ms'] / ms:.3f}", flush=True)
         del vk, ck, vp, cp
-    kernel = dict(max_abs_err=err8, **res["gray"], rgb_ms=res["rgb"]["ms"], rgb_plain_ms=res["rgb"]["plain_ms"],
+    kernel = dict(max_abs_err=0.0, **res["gray"], rgb_ms=res["rgb"]["ms"], rgb_plain_ms=res["rgb"]["plain_ms"],
                   rgb_bound_ms=res["rgb"]["bound_ms"])
 
     zero = {k.name: 0 for k in _build.KERNELS}
     launches = []
     with tempfile.TemporaryDirectory() as tmp:
 
-        def mesh(name, vol, T_world, max_median, max_p90):
-            """extract_mesh -> dedup -> PLY, vertices held against the scene."""
+        def timed(fn):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            tv, tc = vol.extract_mesh()
-            mesh_ms = (time.perf_counter() - t) * 1e3
-            t = time.perf_counter()
-            verts, faces, cols = dedup_triangle_soup(tv, tc)
+            out = fn()
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t) * 1e3
+
+        def mesh(name, vol, T_world, max_median, max_p90):
+            """extract_mesh_tensors -> dedup on the card, held bit-equal to the
+            numpy dedup -> one copy to the host -> PLY; vertices held against
+            the scene."""
+            (tv, tc), ex_ms = timed(vol.extract_mesh_tensors)
+            (verts, faces, cols), dd_ms = timed(lambda: [x.cpu().numpy() for x in dedup_on_device(tv, tc)])
             path = os.path.join(tmp, f"{name}.ply")
-            write_ply_mesh(path, verts, faces, colors=cols)
-            ply_ms = (time.perf_counter() - t) * 1e3
+            _, ply_ms = timed(lambda: write_ply_mesh(path, verts, faces, colors=cols))
+            tv, tc = tv.cpu().numpy(), tc.cpu().numpy()
+            ref, np_ms = timed(lambda: dedup_triangle_soup(tv, tc))
+            if not all(np.array_equal(a, b) for a, b in zip((verts, faces, cols), ref)):
+                raise AssertionError(f"{name} mesh: the dedup on the card differs from the numpy dedup")
             back = read_ply(path)
             med, p90 = scene_distance(scene, tv, T_world, dev)
             if not (len(faces) > 1000 and len(back["faces"]) == len(faces) and np.isfinite(verts).all()
@@ -354,8 +380,9 @@ def mesh_phase(cam, dev, scene, card, poses, grays, depths, fused, dslam, s_gray
                 raise AssertionError(f"{name} mesh: {len(faces)} faces ({len(back['faces'])} read back), "
                                      f"|scene sdf| median {med} (< {max_median}), p90 {p90} (< {max_p90})")
             print(f"{name} mesh: {len(tv)} triangles -> {len(verts)} vertices, {len(faces)} faces; extract_mesh "
-                  f"{mesh_ms:.1f} ms, dedup + PLY {ply_ms:.1f} ms; |scene sdf| at the vertices median "
-                  f"{med * 1e3:.3f} mm, p90 {p90 * 1e3:.3f} mm", flush=True)
+                  f"{ex_ms:.2f} ms, dedup on the card {dd_ms:.2f} ms (bit-equal to the numpy dedup, "
+                  f"{np_ms:.1f} ms), PLY {ply_ms:.2f} ms: {ex_ms + dd_ms + ply_ms:.1f} ms to a mesh; "
+                  f"|scene sdf| at the vertices median {med * 1e3:.3f} mm, p90 {p90 * 1e3:.3f} mm", flush=True)
 
         # -- the fused volumes of phase 5 --
         _build.reset_launch_counts()
@@ -370,9 +397,14 @@ def mesh_phase(cam, dev, scene, card, poses, grays, depths, fused, dslam, s_gray
         kept = range(0, len(est), DENSE_FUSION_STRIDE)
         for f in kept:
             vol.integrate(bilateral_filter(s_depths[f]), s_grays[f][..., None].expand(-1, -1, 3), est[f], cam)
-        print(f"DenseFusion post-hoc: {len(kept)} frames integrated, {vol.num_active} blocks", flush=True)
+        launches.append(counted({**zero, "tsdf_integrate": len(kept)}, "DenseFusion integration"))
+        keys = [real_keys(bilateral_filter(s_depths[f]), est[f], cam, vol.voxel_size, vol.truncation) for f in kept]
+        print(f"DenseFusion post-hoc: {len(kept)} frames integrated, {vol.num_active} blocks; distinct blocks a "
+              f"frame touches: largest {max(keys)}, {sum(k >= INTEGRATE_KEY_CAP for k in keys)} frames at or over "
+              f"the {INTEGRATE_KEY_CAP} cap", flush=True)
+        _build.reset_launch_counts()
         mesh("DenseFusion", vol, slam_gt[0], DENSE_FUSION_VOXEL, 2 * DENSE_FUSION_VOXEL)
-        launches.append(counted({**zero, "tsdf_integrate": len(kept), "marching_cubes": 1}, "DenseFusion"))
+        launches.append(counted({**zero, "marching_cubes": 1}, "DenseFusion mesh"))
         del vol
 
         # -- PipelinedDenseFusion on the orbit --
@@ -385,14 +417,20 @@ def mesh_phase(cam, dev, scene, card, poses, grays, depths, fused, dslam, s_gray
         est_p, _ = pipe.finalize()
         torch.cuda.synchronize()
         pipe_ms = (time.perf_counter() - t) * 1e3 / len(grays)
+        launches.append(counted({**zero, "tsdf_integrate": len(grays),
+                                 "dense_normal_eq": sum(dense.DEFAULT_ITERS) * (len(grays) - 1)}, "pipeline"))
         ate = traj.ate_rmse(est_p, poses)
         if not (np.isfinite(est_p).all() and ate <= MAX_ATE_M):
             raise AssertionError(f"PipelinedDenseFusion ATE {ate} m > {MAX_ATE_M} m (or non-finite poses)")
-        print(f"PipelinedDenseFusion {cam.width}x{cam.height} x {len(grays)} frames: ATE {ate * 1e3:.4f} mm, {pipe.volume.num_active} "
-              f"blocks, {pipe_ms:.3f} ms/frame (one run, integration one frame late) on {card}", flush=True)
+        keys = [real_keys(bilateral_filter(d), T, cam, pipe.voxel_size, pipe.truncation)
+                for d, T in zip(depths, est_p)]
+        print(f"PipelinedDenseFusion {cam.width}x{cam.height} x {len(grays)} frames: ATE {ate * 1e3:.4f} mm, "
+              f"{pipe.volume.num_active} blocks, {pipe_ms:.3f} ms/frame (one run, integration one frame late) on "
+              f"{card}; distinct blocks a frame touches: largest {max(keys)}, "
+              f"{sum(k >= INTEGRATE_KEY_CAP for k in keys)} frames at or over the {INTEGRATE_KEY_CAP} cap", flush=True)
+        _build.reset_launch_counts()
         mesh("pipeline", pipe.volume, poses[0], pipe.voxel_size / 2, pipe.voxel_size)
-        launches.append(counted({**zero, "tsdf_integrate": len(grays), "marching_cubes": 1,
-                                 "dense_normal_eq": sum(dense.DEFAULT_ITERS) * (len(grays) - 1)}, "pipeline"))
+        launches.append(counted({**zero, "marching_cubes": 1}, "pipeline mesh"))
     return dict(kernel=kernel, launches=launches)
 
 

@@ -156,10 +156,10 @@ _SIGNATURES = {
     "nn1": [_VP, _VP, _VP, _I, _I, _VP, _VP, _VP, _VP, _I, _VP],
     # triangle table (256, 5, 3) int8, counts (256,) uint8, edge corners (12, 2) int8 (host)
     "mc_set_tables": [_VP, _VP, _VP],
-    # vox, slots, nbr, B, rows, iso, counts, stream
-    "mc_count": [_VP, _VP, _VP, _I, _I, _F, _VP, _VP],
-    # vox, slots, nbr, coords, B, rows, voxel, iso, ends, verts, colors, stream
-    "mc_emit": [_VP, _VP, _VP, _VP, _I, _I, _F, _F, _VP, _VP, _VP, _VP],
+    # vox, slots, nbr, B, rows, iso, counts, list (B + 1), stream
+    "mc_count": [_VP, _VP, _VP, _I, _I, _F, _VP, _VP, _VP],
+    # vox, slots, nbr, coords, rows, voxel, iso, list, listed, ends, verts, colors, stream
+    "mc_emit": [_VP, _VP, _VP, _VP, _I, _F, _F, _VP, _I, _VP, _VP, _VP, _VP],
 }
 
 _lib: ctypes.CDLL | None = None

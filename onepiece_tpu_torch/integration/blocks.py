@@ -13,9 +13,9 @@ and the coords by slot; blocks take slots in the order they are first seen.
     through `integrate_blocks_matmul`, whose 128-row image window and
     one-hot selection exist for the TPU; the kernel reads the image at each
     voxel's pixel.)
-  - `extract_mesh`: the marching-cubes kernel (`marching_cubes.
+  - `extract_mesh_tensors`: the marching-cubes kernel (`marching_cubes.
     extract_triangles`) over every active block, neighbour slots found on
-    the device.
+    the device; `extract_mesh` copies its triangles to the host.
 The pool grows by doubling when it fills, as the JAX package's does.
 """
 
@@ -174,16 +174,21 @@ class TSDFVolume:
                 out[i, j] = self.slot_of.get(tuple((base + off).tolist()), -1)
         return out
 
-    def extract_mesh(self, chunk: int = 128, cap_per_block: int = 96) -> tuple[np.ndarray, np.ndarray]:
-        """Marching cubes over all active blocks -> host (vertices (T, 3, 3),
-        colors (T, 3, 3)) float32 arrays. `chunk` and `cap_per_block` are
-        taken for the JAX package's signature: the kernel meshes every
-        block in one launch and caps nothing."""
-        del chunk, cap_per_block
+    def extract_mesh_tensors(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """Marching cubes over all active blocks -> (vertices (T, 3, 3),
+        colors (T, 3, 3)) float32 tensors on the volume's device: the
+        kernel meshes every block in one launch and caps nothing."""
         na = self.num_active
         coords = torch.from_numpy(self.block_coords[:na]).to(self.device, torch.int32)
-        verts, colors = mc_ops.extract_triangles(
+        return mc_ops.extract_triangles(
             self.vox, torch.arange(na, dtype=torch.int32, device=self.device),
             neighbor_slots_device(coords), coords, self.voxel_size,
         )
+
+    def extract_mesh(self, chunk: int = 128, cap_per_block: int = 96) -> tuple[np.ndarray, np.ndarray]:
+        """`extract_mesh_tensors` copied to the host as float32 arrays, in the
+        JAX package's signature: `chunk` and `cap_per_block` are taken for
+        it and unused."""
+        del chunk, cap_per_block
+        verts, colors = self.extract_mesh_tensors()
         return verts.cpu().numpy(), colors.cpu().numpy()

@@ -201,23 +201,26 @@ def _extract_triangles_cuda(vox, slots, nbr_slots, block_coords, voxel_size, iso
     b = slots.shape[0]
     req(nbr_slots, "nbr_slots", torch.int32, (b, 7), dev)
     req(block_coords, "block_coords", torch.int32, (b, 3), dev)
+    if vox.data_ptr() % 16:
+        raise ValueError("vox: the kernel copies pool rows 16 bytes at a time; its storage is not 16-byte aligned")
     if b == 0:  # nothing to mesh: no launch
         return vox.new_zeros((0, 3, 3)), vox.new_zeros((0, 3, 3))
     lib = _build.library()
     _upload_tables(lib, dev)
     stream = _build.stream_handle(vox)
     counts = torch.empty(b, dtype=torch.int32, device=dev)
+    listed = torch.zeros(b + 1, dtype=torch.int32, device=dev)  # the blocks with a triangle, then their number
     err = lib.mc_count(vox.data_ptr(), slots.data_ptr(), nbr_slots.data_ptr(), b, vox.shape[0], iso,
-                       counts.data_ptr(), stream)
+                       counts.data_ptr(), listed.data_ptr(), stream)
     _build.check(err, _build.MARCHING_CUBES)
     ends = torch.cumsum(counts, 0, dtype=torch.int32)  # block b writes rows [ends[b-1], ends[b])
-    total = int(ends[-1])  # the one host read: the output's size
+    total, n_listed = torch.stack([ends[-1], listed[b]]).tolist()  # the one host read: the output's size
     verts = torch.empty((total, 3, 3), dtype=torch.float32, device=dev)
     colors = torch.empty((total, 3, 3), dtype=torch.float32, device=dev)
-    if total:
-        err = lib.mc_emit(vox.data_ptr(), slots.data_ptr(), nbr_slots.data_ptr(), block_coords.data_ptr(), b,
-                          vox.shape[0], voxel_size, iso, ends.data_ptr(), verts.data_ptr(), colors.data_ptr(),
-                          stream)
+    if n_listed:
+        err = lib.mc_emit(vox.data_ptr(), slots.data_ptr(), nbr_slots.data_ptr(), block_coords.data_ptr(),
+                          vox.shape[0], voxel_size, iso, listed.data_ptr(), n_listed, ends.data_ptr(),
+                          verts.data_ptr(), colors.data_ptr(), stream)
         _build.check(err, _build.MARCHING_CUBES)
     _build.MARCHING_CUBES.launches += 1
     return verts, colors

@@ -268,14 +268,15 @@ class FusedDenseFusion:
         return int(torch.stack(self._sat).sum()) if self._sat else 0
 
     def to_volume(self) -> TSDFVolume:
-        """The live pool as a TSDFVolume (no copy): block i at slot i, as the
-        hash table allocated them. One fetch of the block coords. The volume
-        shares the pool, so frames processed later change its voxels but
-        not its block list: call again after them."""
+        """A TSDFVolume over a copy of the pool, as the JAX package returns new
+        arrays: block i at slot i, as the hash table allocated them. One fetch
+        of the block coords. The volume owns its pool: integrating into it
+        leaves the fused loop's rows alone, and frames processed later do
+        not reach it."""
         st = self._state
         if st is None:
             raise RuntimeError("to_volume before any frame was processed")
         na = int(st.table.num_active)
-        vol = TSDFVolume(self.voxel_size, self.truncation, max_weight=MAX_WEIGHT, vox=st.vox)
+        vol = TSDFVolume(self.voxel_size, self.truncation, max_weight=MAX_WEIGHT, vox=st.vox.clone())
         vol.allocate(st.table.block_coords[:na].cpu().numpy())
         return vol

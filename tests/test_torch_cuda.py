@@ -37,6 +37,8 @@ from onepiece_tpu_torch.io import trajectory as traj
 from onepiece_tpu_torch.io.ply import dedup_triangle_soup
 from onepiece_tpu_torch.ops import dense_odometry as dops
 from onepiece_tpu_torch.ops import marching_cubes as mc
+from onepiece_tpu_torch.ops.mc_tables import TRI_COUNTS
+from onepiece_tpu_torch.ops.mesh_dedup import dedup_triangle_soup as dedup_on_device
 from onepiece_tpu_torch.ops import nn1 as nn1_ops
 from onepiece_tpu_torch.ops import tsdf as tsdf_ops
 from onepiece_tpu_torch.ops import tsdf_slots
@@ -572,3 +574,73 @@ def test_volume_integrate_and_mesh_on_the_card_matches_cpu(dev, frames):
                                             neighbor_slots_device(coords), coords, vk.voxel_size)
     np.testing.assert_array_equal(tvk, vp.numpy())
     np.testing.assert_array_equal(vols["cuda"][1][1], cp.numpy())
+
+
+def test_mc_kernel_dense_block_spans_every_step(dev):
+    """One block of checkerboard sdf (4 triangles in every meshable voxel,
+    1,372 in all): each of the warp's 16 voxel steps stages and writes its
+    own range of rows."""
+    ijk = np.indices((8, 8, 8)).reshape(3, -1).T
+    sdf = np.where(ijk.sum(1) % 2 == 0, 0.5, -0.5)[None]
+    pool = _mc_pool(dev, sdf, np.ones((1, 512)))
+    vk = _mc_kernel_vs_plain(pool, [0], np.full((1, 7), -1), [[2, -3, 5]])
+    assert vk.shape[0] == 7**3 * 4
+
+
+def _one_voxel_block(config):
+    """(sdf, weight) (512,) of a block whose only meshable voxel is (0, 0, 0),
+    its corner signs the marching-cubes case `config`."""
+    sdf, weight = np.full((8, 8, 8), 0.5), np.zeros((8, 8, 8))
+    for c in range(8):
+        dx, dy, dz = c & 1, (c >> 1) & 1, (c >> 2) & 1
+        sdf[dx, dy, dz] = -0.5 if (config >> c) & 1 else 0.5
+        weight[dx, dy, dz] = 1.0
+    return sdf.reshape(-1), weight.reshape(-1)
+
+
+def test_mc_kernel_ranges_start_at_every_alignment(dev):
+    """Blocks of 1, 2 and 3 triangles before dense blocks: the dense blocks'
+    first rows (36 B each) start at every offset modulo 16 B."""
+    cases = {n: int(np.flatnonzero(TRI_COUNTS == n)[0]) for n in (1, 2, 3)}
+    small = [_one_voxel_block(cases[n]) for n in (1, 2, 3)]
+    dense = np.where(np.indices((8, 8, 8)).reshape(3, -1).sum(0) % 2 == 0, 0.5, -0.5)
+    sdf = np.stack([s for s, _ in small] + [dense])
+    weight = np.stack([w for _, w in small] + [np.ones(512)])
+    pool = _mc_pool(dev, sdf, weight)
+    slots = [0, 3, 1, 3, 2, 3, 2, 2, 3]  # rows start at 0, 1, 1373, 1375, 2747, 2750, 4122, 4125, 4128
+    rng = np.random.default_rng(3)
+    coords = rng.integers(-40, 40, (len(slots), 3))
+    vk = _mc_kernel_vs_plain(pool, slots, np.full((len(slots), 7), -1), coords)
+    counts = np.array([1, 2, 3, 1372])[slots]
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    assert vk.shape[0] == counts.sum()
+    assert set((starts[np.array(slots) == 3] * 9) % 4) == {0, 1, 2, 3}
+
+
+def test_mc_kernel_twenty_thousand_blocks(dev):
+    """20,000 blocks over 64 rows of random sdf, random neighbour rows (some
+    absent, some outside the pool)."""
+    rng = np.random.default_rng(4)
+    sdf = rng.uniform(-1.2, 1.2, (64, 512))
+    weight = rng.integers(0, 3, (64, 512)).astype(np.float64)
+    pool = _mc_pool(dev, sdf, weight)
+    n = 20000
+    slots = rng.integers(-2, 66, n)
+    nbr = rng.integers(-1, 66, (n, 7))
+    vk = _mc_kernel_vs_plain(pool, slots, nbr, rng.integers(-400, 400, (n, 3)))
+    assert vk.shape[0] > n * 50
+
+
+def test_device_dedup_equals_numpy_on_a_fused_soup(dev, frames):
+    """The fused loop's volume at 160x120, meshed by the kernel: the dedup on
+    the card gives numpy's vertices, faces and colours, bit for bit."""
+    _, grays, depths = frames
+    slam = FusedDenseFusion(CAM, device=dev, kmax=4096, stride=2)
+    slam.process_chunk(grays, depths)
+    tv, tc = slam.to_volume().extract_mesh_tensors()
+    assert tv.is_cuda and tv.shape[0] > 5000
+    mine = dedup_on_device(tv, tc)
+    ref = dedup_triangle_soup(tv.cpu().numpy(), tc.cpu().numpy())
+    for a, b in zip(mine, ref):
+        assert a.is_cuda
+        np.testing.assert_array_equal(a.cpu().numpy(), b)

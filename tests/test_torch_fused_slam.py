@@ -237,3 +237,26 @@ def test_rgb_run_keeps_the_gray_runs_poses_and_geometry(run):
     col = vox[:, 2:5].movedim(1, -1)[seen]
     assert bool(torch.isfinite(col).all()) and float(col.min()) >= 0.0 and float(col.max()) <= 1.0
     assert float((col - vox_gray[:, 2:5].movedim(1, -1)[seen]).abs().max()) > 0.1
+
+
+def test_to_volume_owns_its_pool(run):
+    """Integrating a frame into `to_volume()` leaves the fused loop alone:
+    after one more fused frame, its pool and trajectory equal those of a run
+    that never exported. (The volume allocates new blocks at slots
+    num_active.., rows that the loop's hash table hands out next.)"""
+    cam, grays, depths, poses = run["cam_t"], run["grays"], run["depths"], run["poses"]
+    T_wc = np.linalg.inv(poses[0]) @ poses[3]
+    T_wc[:3, 3] += [0.2, 0.0, 0.0]  # a view that reaches blocks the loop has not seen
+    runs = []
+    for export in (False, True):
+        slam = tfs.FusedDenseFusion(cam, device="cpu", **KW)
+        slam.process_chunk(grays[:3], depths[:3])
+        if export:
+            vol = slam.to_volume()
+            na = vol.num_active
+            vol.integrate(depths[3], None, T_wc, cam)
+            assert vol.num_active > na
+        slam.process_frame(grays[3], depths[3])
+        runs.append((slam.finalize()[0], slam._state.vox[:-1].clone()))  # the last row is the trash row
+    np.testing.assert_array_equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])

@@ -7,8 +7,9 @@
 The counterpart of `tools/fused_fusion.py` for `onepiece_tpu_torch`: renders
 N frames of the synthetic orbit (the TUM reader is not ported yet), runs
 `FusedDenseFusion` (tracking and fusion on the device, no host sync per
-frame), then `finalize` -> `to_volume().extract_mesh()` (the marching-cubes
-kernel) -> `dedup_triangle_soup` -> `write_ply_mesh`. Prints fps, blocks,
+frame), then `finalize` -> `to_volume().extract_mesh_tensors()` (the
+marching-cubes kernel) -> `ops/mesh_dedup.dedup_triangle_soup` on the device
+-> one copy to the host -> `write_ply_mesh`. Prints fps, blocks,
 overflow, ATE against the renderer's poses and the mesh's size and time.
 Imports nothing of the JAX package.
 """
@@ -27,7 +28,8 @@ import torch
 
 from onepiece_tpu_torch.geometry.camera import PRESETS
 from onepiece_tpu_torch.io import trajectory as traj
-from onepiece_tpu_torch.io.ply import dedup_triangle_soup, write_ply_mesh
+from onepiece_tpu_torch.io.ply import write_ply_mesh
+from onepiece_tpu_torch.ops.mesh_dedup import dedup_triangle_soup
 from onepiece_tpu_torch.systems.fused_slam import FusedDenseFusion
 from onepiece_tpu_torch.utils import synthetic
 
@@ -55,10 +57,11 @@ def synthetic_frames(args, trajectory=synthetic.orbit_trajectory):
 
 
 def write_mesh(vol, path: str) -> tuple[int, int, float]:
-    """Mesh the volume and write the PLY: (vertices, faces, seconds)."""
+    """Mesh the volume (the marching-cubes kernel), merge its vertices on
+    the volume's device, copy the mesh to the host once and write the PLY:
+    (vertices, faces, seconds)."""
     t = time.perf_counter()
-    tv, tc = vol.extract_mesh()
-    verts, faces, cols = dedup_triangle_soup(tv, tc)
+    verts, faces, cols = (x.cpu().numpy() for x in dedup_triangle_soup(*vol.extract_mesh_tensors()))
     write_ply_mesh(path, verts, faces, colors=cols)
     return len(verts), len(faces), time.perf_counter() - t
 

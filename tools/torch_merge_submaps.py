@@ -7,7 +7,8 @@ The counterpart of `tools/merge_submaps.py` for `onepiece_tpu_torch`: loads
 submap volumes (`volume_ops.save_volume` npz, written by either package),
 transforms each into the global frame (16-float-row world-from-submap
 poses), merges them voxel-wise and meshes the result (the marching-cubes
-kernel on the card). Imports nothing of the JAX package.
+kernel on the card, then the vertex dedup on the volume's device). Imports
+nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -16,11 +17,12 @@ import argparse
 import os
 import sys
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from torch_fused_fusion import write_mesh
 
 from onepiece_tpu_torch.integration import volume_ops
 from onepiece_tpu_torch.io import trajectory as traj
-from onepiece_tpu_torch.io.ply import dedup_triangle_soup, write_ply_mesh
 
 
 def main() -> None:
@@ -44,10 +46,8 @@ def main() -> None:
     print(f"merged: {merged.num_active} blocks")
     if args.out_volume:
         volume_ops.save_volume(merged, args.out_volume)
-    tv, tc = merged.extract_mesh()
-    verts, faces, cols = dedup_triangle_soup(tv, tc)
-    write_ply_mesh(args.out_mesh, verts, faces, colors=cols)
-    print(f"mesh: {len(verts)} verts {len(faces)} faces -> {args.out_mesh}")
+    nv, nf, _ = write_mesh(merged, args.out_mesh)
+    print(f"mesh: {nv} verts {nf} faces -> {args.out_mesh}")
 
 
 if __name__ == "__main__":
