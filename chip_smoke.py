@@ -43,16 +43,37 @@ Phases, in order; any failure exits non-zero before the final `ok` line:
      reconstruction of phase 7 (every 8th frame at the optimised poses,
      voxel 0.02 m, through `TSDFVolume.integrate`) and its mesh;
      `PipelinedDenseFusion` on the 16-frame orbit (ATE) and its mesh. For
-     the last two, the largest count of distinct blocks a frame touches,
-     against the 4,096-key cap of their `touched_block_keys`
+     the last two, the largest count of distinct blocks a frame touches
+     against the first 4,096-key cap of their `touched_block_keys`, and
+     their `key_saturated_frames` (frames whose keys filled the cap; their
+     key pass is redone at a larger cap, so no block is dropped)
+  9. sparse: the Hamming kernel (`csrc/hamming.cu`) against its plain
+     versions at the sparse path's shapes: `hamming_match` on the 1000
+     descriptors of orbit frames 0 and 1, unwindowed and windowed (20 px
+     around the ground-truth prediction), indices and distances equal;
+     `mild_feature_scores` of the last loop frame's 1000 descriptors against
+     the 100-frame loop's 128 x 1000 keyframe database with g = 39, within
+     1e-5 relative and its loop-closure candidates equal; each timed. Then,
+     launches counted and host syncs counted, `FusedFBASlam` (defaults) on
+     the 16-frame orbit in one chunk (ATE <= 15 mm, no edge overflow; ms per
+     frame over 5 runs after a warm run) and on the 100-frame
+     `loop_trajectory` in chunks of 25 (ATE <= 30 mm, a loop-closure edge,
+     a capacity doubling, no edge overflow; ms per frame over 2 runs); and
+     the FBAFusion mesh of the loop (every 8th frame at the optimised poses,
+     voxel 0.02 m, truncation 0.1 m: TSDF and marching-cubes kernels, the
+     dedup on the card bit-equal to numpy's, |scene SDF| median at the
+     vertices < voxel / 2, the volume mapped to the scene by the first
+     ground-truth pose, as in phase 8)
 Prints one JSON line of per-kernel results (launches: the counted runs of
-phases 5 (gray and rgb), 7 and 8 together; ms: the kernels' device time per
-wrapper call from the profiler; event_ms and plain_ms: CUDA events around
+phases 5 (gray and rgb), 7 and 8 together, and for hamming phase 9's; ms: the kernels' device time per
+wrapper call from the profiler (from CUDA events around each single call
+where the profiler records none; a note on stderr says so); event_ms and plain_ms: CUDA events around
 back-to-back calls of the wrapper and of the plain version; the TSDF entry
 adds the same for the rgb form (rgb_*), the gray form at K = 16384
 (k16384_ms) and with a cold L2 (cold_ms); bound_ms: the least time the card
 could take for the same work, the larger of bytes over 3.35 TB/s and
-float32 operations over 67 TFLOP/s, the published H100 SXM peaks at 700 W;
+float32 operations over 67 TFLOP/s, the published H100 SXM peaks at 700 W
+(hamming: __popc counts over PEAK_POPC_PER_S);
 roofline_share = bound_ms / ms), the card line, then
 {"ok": true, "device": {...}} as the last line.
 """
@@ -97,42 +118,80 @@ MC_BYTES_PER_COLOUR_VOXEL = 12  # r, g, b f32 of a voxel at a corner of a block 
 MC_BYTES_PER_TRIANGLE = 72  # 3 vertices and 3 colours of 3 f32
 DENSE_FUSION_VOXEL = 0.02  # tools/dense_fusion.py's post-hoc reconstruction
 DENSE_FUSION_STRIDE = 8
-INTEGRATE_KEY_CAP = 4096  # touched_block_keys' max_blocks in TSDFVolume.integrate and PipelinedDenseFusion
+INTEGRATE_KEY_CAP = 4096  # touched_block_keys' first max_blocks in TSDFVolume.integrate and PipelinedDenseFusion
 KEY_COUNT_ROOM = 1 << 16  # room to count a frame's touched blocks without that cap
+# __popc results per clock on an SM of compute capability 9.0 (the CUDA C++
+# Programming Guide's table of arithmetic instruction throughput: 16 for
+# "population count"), times 132 SMs at the H100 SXM's 1.98 GHz boost clock
+PEAK_POPC_PER_S = 16 * 132 * 1.98e9
+MAX_SPARSE_ATE_M = 15e-3  # the orbit: the reference CPU build's 15.13 mm (BENCH_r05)
+MAX_LOOP_ATE_M = 30e-3  # the 100-frame loop
+SPARSE_TIMED_RUNS = 5
+LOOP_FRAMES = 100
+LOOP_CHUNK = 25
+LOOP_TIMED_RUNS = 2
+FBA_VOXEL = 0.02  # tools/fba_fusion.py's mesh step: voxel 0.02 m, truncation 5 voxels, every 8th frame
+FBA_STRIDE = 8
+MILD_G = 39  # keyframes in the loop's database when the MILD kernel is checked
+MILD_DB_ROWS = 128  # the loop's database capacity after its doublings
 
 
-def bound(n_bytes: float, n_ops: float) -> dict:
-    """The least time for the work on the card, and what binds it."""
+def bound(n_bytes: float, n_ops: float, peak_ops_per_s: float = PEAK_F32_PER_S) -> dict:
+    """The least time for the work on the card, and what binds it: bytes over
+    3.35 TB/s, and float32 operations over 67 TFLOP/s by default, or __popc
+    counts over PEAK_POPC_PER_S: 16 results a clock per SM for compute
+    capability 9.0 (the CUDA C++ Programming Guide's table of arithmetic
+    instruction throughput) x 132 SMs x 1.98 GHz, 4.18e12 a second."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_F32_PER_S * 1e3
+    t_ops = n_ops / peak_ops_per_s * 1e3
     return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def device_ms(fn, kernels: tuple[str, ...], calls: int = 20) -> float:
+def device_ms(fn, kernels: tuple[str, ...], calls: int = 20, attempts: int = 3) -> float:
     """Device time per fn() call in the kernels whose names hold one of
     `kernels` (each launched once per call): the sum of each kernel's mean
     duration as the profiler (CUPTI) records it. A mean per kernel stays
     right when the profiler drops some records. CUDA events around
     back-to-back calls also count the time the device waits for the host
-    to enqueue the next launch."""
+    to enqueue the next launch.
+
+    The profiler on the card now and then records no device activity in a
+    session; the session is then repeated, up to `attempts` times. If none
+    of them records every kernel, the time is that of CUDA events around
+    each single call (the median over `calls`), which also counts the
+    wrapper's other work, and a note on stderr says so."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = {k: [] for k in kernels}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            for k in kernels:
-                if k in e.name:
-                    us[k].append(e.time_range.elapsed_us())
-    if not all(us.values()):
-        raise AssertionError(f"the profiler recorded no device time of {[k for k, v in us.items() if not v]}")
-    return sum(float(np.mean(v)) for v in us.values()) / 1e3
+    seen = set()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = {k: [] for k in kernels}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                seen.add(e.name)
+                for k in kernels:
+                    if k in e.name:
+                        us[k].append(e.time_range.elapsed_us())
+        if all(us.values()):
+            return sum(float(np.mean(v)) for v in us.values()) / 1e3
+    start = [torch.cuda.Event(enable_timing=True) for _ in range(calls)]
+    end = [torch.cuda.Event(enable_timing=True) for _ in range(calls)]
+    for i in range(calls):
+        start[i].record()
+        fn()
+        end[i].record()
+    torch.cuda.synchronize()
+    ms = float(np.median([a.elapsed_time(b) for a, b in zip(start, end)]))
+    print(f"note: in {attempts} profiler sessions the device time of {[k for k, v in us.items() if not v]} was "
+          f"not recorded ({len(seen)} device kernel names seen: {sorted(seen)[:8]}); timed {kernels} by CUDA "
+          f"events around each single call instead: {ms:.4f} ms", file=sys.stderr, flush=True)
+    return ms
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -401,7 +460,8 @@ def mesh_phase(cam, dev, scene, card, poses, grays, depths, fused, dslam, s_gray
         keys = [real_keys(bilateral_filter(s_depths[f]), est[f], cam, vol.voxel_size, vol.truncation) for f in kept]
         print(f"DenseFusion post-hoc: {len(kept)} frames integrated, {vol.num_active} blocks; distinct blocks a "
               f"frame touches: largest {max(keys)}, {sum(k >= INTEGRATE_KEY_CAP for k in keys)} frames at or over "
-              f"the {INTEGRATE_KEY_CAP} cap", flush=True)
+              f"the first {INTEGRATE_KEY_CAP} cap; key_saturated_frames {vol.key_saturated_frames} (key pass "
+              f"redone, cap now {vol.max_blocks})", flush=True)
         _build.reset_launch_counts()
         mesh("DenseFusion", vol, slam_gt[0], DENSE_FUSION_VOXEL, 2 * DENSE_FUSION_VOXEL)
         launches.append(counted({**zero, "marching_cubes": 1}, "DenseFusion mesh"))
@@ -427,10 +487,209 @@ def mesh_phase(cam, dev, scene, card, poses, grays, depths, fused, dslam, s_gray
         print(f"PipelinedDenseFusion {cam.width}x{cam.height} x {len(grays)} frames: ATE {ate * 1e3:.4f} mm, "
               f"{pipe.volume.num_active} blocks, {pipe_ms:.3f} ms/frame (one run, integration one frame late) on "
               f"{card}; distinct blocks a frame touches: largest {max(keys)}, "
-              f"{sum(k >= INTEGRATE_KEY_CAP for k in keys)} frames at or over the {INTEGRATE_KEY_CAP} cap", flush=True)
+              f"{sum(k >= INTEGRATE_KEY_CAP for k in keys)} frames at or over the first {INTEGRATE_KEY_CAP} cap; "
+              f"key_saturated_frames {pipe.key_saturated_frames} (key pass redone, cap now {pipe.max_blocks})",
+              flush=True)
+        if max(keys) >= pipe.max_blocks:
+            raise AssertionError(f"PipelinedDenseFusion: a frame touches {max(keys)} blocks, cap {pipe.max_blocks}")
         _build.reset_launch_counts()
         mesh("pipeline", pipe.volume, poses[0], pipe.voxel_size / 2, pipe.voxel_size)
         launches.append(counted({**zero, "marching_cubes": 1}, "pipeline mesh"))
+    return dict(kernel=kernel, launches=launches)
+
+
+def hamming_bytes_ops(a, b, vb, uv_pred=None, uv_b=None, window: float = 0.0) -> tuple[int, int]:
+    """What `hamming_match` must move and compute on these inputs: each
+    descriptor (32 B), validity (1 B) and uv (8 B, windowed) read once, 12 B
+    a query written; 8 __popc for every (query, valid target in the window)."""
+    n, m = a.shape[0], b.shape[0]
+    n_bytes = 32 * (n + m) + m + 12 * n
+    if uv_pred is None:
+        pairs = n * int(vb.sum())
+    else:
+        n_bytes += 8 * (n + m)
+        inwin = ((uv_pred[:, None, 0] - uv_b[None, :, 0]).abs() <= window) & \
+                ((uv_pred[:, None, 1] - uv_b[None, :, 1]).abs() <= window)
+        pairs = int((inwin & vb[None]).sum())
+    return n_bytes, 8 * pairs
+
+
+def sparse_phase(cam, dev, scene, card, poses, grays, depths) -> dict:
+    """Phase 9: the Hamming kernel against its plain version at the sparse
+    path's shapes; FusedFBASlam on the orbit and on the 100-frame loop with
+    counted launches and host syncs; the FBAFusion mesh of the loop."""
+    from onepiece_tpu_torch import _build
+    from onepiece_tpu_torch.integration.blocks import TSDFVolume
+    from onepiece_tpu_torch.io import trajectory as traj
+    from onepiece_tpu_torch.io.ply import dedup_triangle_soup
+    from onepiece_tpu_torch.lcdetection import mild
+    from onepiece_tpu_torch.odometry import sparse
+    from onepiece_tpu_torch.ops import hamming
+    from onepiece_tpu_torch.ops.image import bilateral_filter
+    from onepiece_tpu_torch.ops.mesh_dedup import dedup_triangle_soup as dedup_on_device
+    from onepiece_tpu_torch.systems.fused_sparse import FusedFBASlam
+    from onepiece_tpu_torch.utils import synthetic
+
+    zero = {k.name: 0 for k in _build.KERNELS}
+    res = {}
+
+    # -- (a) hamming_match at 1000 x 1000 on a real 640x480 frame pair --
+    fr = sparse.extract_sparse_frames_batch(grays[:2], depths[:2], cam, max_keypoints=1000, threshold=0.01)
+    src, tgt = (sparse.map_frame(lambda t: t[i].contiguous(), fr) for i in (0, 1))
+    T_ts = torch.from_numpy(np.linalg.inv(poses[1]) @ poses[0]).to(dev, torch.float32)
+    uv_pred = cam.project(src.points @ T_ts[:3, :3].T + T_ts[:3, 3])[0].contiguous()
+    forms = {"1000x1000": (src.kp.desc, tgt.kp.desc, tgt.valid),
+             "windowed 20 px": (src.kp.desc, tgt.kp.desc, tgt.valid, uv_pred, tgt.kp.uv, 20.0)}
+    for form, args in forms.items():
+        k = hamming.hamming_match(*args)
+        p = hamming.hamming_match_reference(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(k, p)):
+            raise AssertionError(f"hamming_match {form}: kernel and plain version differ "
+                                 f"({int((k[0] != p[0]).sum())} indices, {int((k[1] != p[1]).sum())} best, "
+                                 f"{int((k[2] != p[2]).sum())} second distances)")
+        ms = device_ms(lambda: hamming.hamming_match(*args), ("hamming_match_kernel",))
+        event_ms = cuda_ms(lambda: hamming.hamming_match(*args))
+        plain_ms = cuda_ms(lambda: hamming.hamming_match_reference(*args), reps=5)
+        n_bytes, n_popc = hamming_bytes_ops(*args)
+        b = bound(n_bytes, n_popc, PEAK_POPC_PER_S)
+        res[form] = dict(ms=ms, event_ms=event_ms, plain_ms=plain_ms, **b)
+        print(f"hamming_match {form}: {args[0].shape[0]} queries, {args[1].shape[0]} targets "
+              f"({int(args[2].sum())} valid): indices, best and second distances equal to the plain version "
+              f"({int((k[1] <= 64).sum())} best <= 64); kernel {ms:.4f} ms on the device ({event_ms:.4f} ms by "
+              f"events), plain {plain_ms:.4f} ms, bound {b['bound_ms']:.5f} ms ({b['bound_by']}: {n_popc} popc, "
+              f"{n_bytes} B), roofline share {b['bound_ms'] / ms:.3f}", flush=True)
+
+    # -- (b) FusedFBASlam on the 16-frame orbit, one chunk --
+    def run_orbit():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        s = FusedFBASlam(cam, device=dev)
+        s.process_chunk(grays, depths)
+        torch.cuda.synchronize()
+        return s, (time.perf_counter() - t) * 1e3 / len(grays)
+
+    run_orbit()  # warm
+    launches = []
+    _build.reset_launch_counts()
+    with SyncCounter() as sc:
+        slam, _ = run_orbit()
+    launches.append(counted({**zero, "hamming": _build.HAMMING.launches}, "sparse orbit"))
+    syncs = sc.count
+    ate = traj.ate_rmse(slam.trajectory(), poses)
+    if not (launches[-1]["hamming"] >= 2 * (len(grays) - 1) and np.isfinite(slam.trajectory()).all()
+            and ate <= MAX_SPARSE_ATE_M and slam.edge_overflow == 0):
+        raise AssertionError(f"FusedFBASlam orbit: ATE {ate} m (<= {MAX_SPARSE_ATE_M}), overflow "
+                             f"{slam.edge_overflow}, launches {launches[-1]}")
+    times = [run_orbit()[1] for _ in range(SPARSE_TIMED_RUNS)]
+    print(f"FusedFBASlam 640x480 x {len(grays)} frames of the orbit, one chunk: ATE {ate * 1e3:.4f} mm, "
+          f"{slam.num_kf} keyframes, {slam.num_edges} edges ({slam.lc_edges_total} LC), overflow "
+          f"{slam.edge_overflow}, hamming launches {launches[-1]['hamming']}; host syncs {syncs} "
+          f"({syncs / len(grays):.2f} per frame; {slam.host_reads} of them the slice's own reads); ms/frame "
+          f"over {SPARSE_TIMED_RUNS} runs after a warm run: median {np.median(times):.3f} "
+          f"(runs {[round(t, 3) for t in times]}) on {card}", flush=True)
+
+    # -- (c) the 100-frame loop in chunks of 25 --
+    loop_gt = synthetic.loop_trajectory(LOOP_FRAMES)
+    rendered = [synthetic.render(scene, torch.from_numpy(p).to(dev), cam.fx, cam.fy, cam.cx, cam.cy,
+                                 cam.height, cam.width, num_steps=RENDER_STEPS) for p in loop_gt]
+    l_depths = torch.stack([d for d, _ in rendered])
+    l_grays = torch.stack([g for _, g in rendered])
+    del rendered
+
+    def run_loop():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        s = FusedFBASlam(cam, device=dev)
+        for i in range(0, LOOP_FRAMES, LOOP_CHUNK):
+            s.process_chunk(l_grays[i : i + LOOP_CHUNK], l_depths[i : i + LOOP_CHUNK])
+        torch.cuda.synchronize()
+        return s, (time.perf_counter() - t) * 1e3 / LOOP_FRAMES
+
+    run_loop()  # warm
+    _build.reset_launch_counts()
+    with SyncCounter() as sc:
+        loop, _ = run_loop()
+    launches.append(counted({**zero, "hamming": _build.HAMMING.launches}, "sparse loop"))
+    syncs = sc.count
+    est = loop.trajectory()
+    ate = traj.ate_rmse(est, loop_gt)
+    if not (np.isfinite(est).all() and ate <= MAX_LOOP_ATE_M and loop.lc_edges_total >= 1
+            and loop.capacity_doublings >= 1 and loop.edge_overflow == 0):
+        raise AssertionError(f"FusedFBASlam loop: ATE {ate} m (<= {MAX_LOOP_ATE_M}), LC edges "
+                             f"{loop.lc_edges_total}, doublings {loop.capacity_doublings}, overflow {loop.edge_overflow}")
+    times = [run_loop()[1] for _ in range(LOOP_TIMED_RUNS)]
+    print(f"FusedFBASlam 640x480 x {LOOP_FRAMES} frames of loop_trajectory in chunks of {LOOP_CHUNK}: ATE "
+          f"{ate * 1e3:.4f} mm, {loop.num_kf} keyframes, {loop.num_edges} edges ({loop.lc_edges_total} LC), "
+          f"capacities {loop.kf_capacity} keyframes / {loop.edge_capacity} edges ({loop.capacity_doublings} "
+          f"doublings), overflow {loop.edge_overflow}, hamming launches {launches[-1]['hamming']}; host syncs "
+          f"{syncs} ({syncs / LOOP_FRAMES:.2f} per frame; {loop.host_reads} of them the slice's own reads); "
+          f"ms/frame over {LOOP_TIMED_RUNS} runs after a warm run: median {np.median(times):.3f} "
+          f"(runs {[round(t, 3) for t in times]}) on {card}", flush=True)
+
+    # -- (a) mild_feature_scores: 1000 queries x the loop's 128 x 1000 database, g = 39 --
+    st = loop._state
+    db_desc, db_valid = st.kf.kp.desc, st.kf.valid
+    q = sparse.extract_sparse_frames_batch(l_grays[-1:], l_depths[-1:], cam, max_keypoints=1000, threshold=0.01)
+    q_desc, q_valid = q.kp.desc[0].contiguous(), q.valid[0].contiguous()
+    g = torch.full((), MILD_G, dtype=torch.int64, device=dev)
+    fk = mild.mild_feature_scores(q_desc, q_valid, db_desc, db_valid, g)
+    fp = mild.mild_feature_scores_reference(q_desc, q_valid, db_desc, db_valid, g)
+    rest = (g, g - 1, torch.full((), -1, dtype=torch.int64, device=dev))
+    ck, okk = mild.lc_candidates_device(q_desc, q_valid, db_desc, db_valid, *rest)
+    cp, okp = mild.candidates_from_scores(fp, q_valid, *rest)
+    torch.cuda.synchronize()
+    err = float((fk - fp).abs().max())
+    rel = err / max(float(fp.abs().max()), 1e-30)
+    if not (db_desc.shape[0] == MILD_DB_ROWS and float(fp.max()) > 0 and rel <= 1e-5
+            and torch.equal(ck, cp) and torch.equal(okk, okp)):
+        raise AssertionError(f"mild_feature_scores: DB {tuple(db_desc.shape)}, rel err {rel} (<= 1e-5), "
+                             f"candidates {ck.tolist()} {okk.tolist()} vs plain {cp.tolist()} {okp.tolist()}")
+    mild_args = (q_desc, q_valid, db_desc, db_valid, g)
+    ms = device_ms(lambda: mild.mild_feature_scores(*mild_args), ("mild_feature_scores_kernel",))
+    event_ms = cuda_ms(lambda: mild.mild_feature_scores(*mild_args))
+    plain_ms = cuda_ms(lambda: mild.mild_feature_scores_reference(*mild_args), reps=3, warmup=1)
+    n_cap, f = db_desc.shape[:2]
+    rows = db_valid[:MILD_G]
+    n_bytes = 33 * f + 33 * MILD_G * f + 4 * q_desc.shape[0] * n_cap + 4 + 256
+    n_popc = 8 * int(q_valid.sum()) * int(rows.sum())
+    b = bound(n_bytes, n_popc, PEAK_POPC_PER_S)
+    print(f"mild_feature_scores: {q_desc.shape[0]} queries ({int(q_valid.sum())} valid) x DB {tuple(db_desc.shape)}, "
+          f"g = {MILD_G} ({int(rows.sum())} valid features): max abs err {err:.3g} (rel {rel:.3g}), candidates "
+          f"{ck.tolist()} ({int(okk.sum())} salient) equal; kernel {ms:.4f} ms on the device ({event_ms:.4f} ms by "
+          f"events), plain {plain_ms:.4f} ms, bound {b['bound_ms']:.5f} ms ({b['bound_by']}: {n_popc} popc, "
+          f"{n_bytes} B), roofline share {b['bound_ms'] / ms:.3f}", flush=True)
+    m1 = res["1000x1000"]
+    kernel = dict(max_abs_err=err, **m1, windowed_ms=res["windowed 20 px"]["ms"],
+                  windowed_plain_ms=res["windowed 20 px"]["plain_ms"],
+                  windowed_bound_ms=res["windowed 20 px"]["bound_ms"], mild_ms=ms, mild_event_ms=event_ms,
+                  mild_plain_ms=plain_ms, mild_bound_ms=b["bound_ms"])
+
+    # -- (d) the FBAFusion mesh of the loop: every 8th frame at the optimised poses --
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    vol = TSDFVolume(voxel_size=FBA_VOXEL, truncation=5 * FBA_VOXEL, device=dev)
+    kept = range(0, LOOP_FRAMES, FBA_STRIDE)
+    for fi in kept:
+        vol.integrate(bilateral_filter(l_depths[fi]), l_grays[fi][..., None].expand(-1, -1, 3), est[fi], cam)
+    tv, tc = vol.extract_mesh_tensors()
+    verts, faces, cols = (x.cpu().numpy() for x in dedup_on_device(tv, tc))
+    mesh_ms = (time.perf_counter() - t) * 1e3
+    mesh_launches = counted({**zero, "tsdf_integrate": len(kept), "marching_cubes": 1}, "FBAFusion mesh")
+    tv, tc = tv.cpu().numpy(), tc.cpu().numpy()
+    if not all(np.array_equal(x, y) for x, y in zip((verts, faces, cols), dedup_triangle_soup(tv, tc))):
+        raise AssertionError("FBAFusion mesh: the dedup on the card differs from the numpy dedup")
+    # the volume's frame is the first camera's (the trajectory starts at the
+    # identity), so the first ground-truth pose maps it to the scene's, as in phase 8
+    med, p90 = scene_distance(scene, tv, loop_gt[0], dev)
+    if not (len(faces) > 1000 and np.isfinite(verts).all() and med < FBA_VOXEL / 2):
+        raise AssertionError(f"FBAFusion mesh: {len(faces)} faces, |scene sdf| median {med} (< {FBA_VOXEL / 2})")
+    print(f"FBAFusion mesh of the loop: {len(kept)} frames at the optimised poses, {vol.num_active} blocks "
+          f"(key_saturated_frames {vol.key_saturated_frames}), {len(tv)} triangles -> {len(verts)} vertices, "
+          f"{len(faces)} faces (the dedup on the card bit-equal to numpy's) in {mesh_ms:.1f} ms; launches "
+          f"{mesh_launches}; |scene sdf| at the vertices median {med * 1e3:.3f} mm, p90 {p90 * 1e3:.3f} mm",
+          flush=True)
     return dict(kernel=kernel, launches=launches)
 
 
@@ -623,7 +882,7 @@ def main() -> int:
         slam, est, _ = run(forbid_syncs=True, colour=colour)
         launches = {k.name: k.launches for k in _build.KERNELS}
         expect = {"tsdf_integrate": N_FRAMES, "dense_normal_eq": sum(slam.iters) * (N_FRAMES - 1), "nn1": 0,
-                  "marching_cubes": 0}
+                  "marching_cubes": 0, "hamming": 0}
         if launches != expect:
             raise AssertionError(f"{form} slice: kernel launches on the main path {launches}, expected {expect}")
         slice_launches[form] = launches
@@ -721,7 +980,7 @@ def main() -> int:
     slam_launches = {k.name: k.launches for k in _build.KERNELS}
     n_icp = len(icp_syncs)
     expect = {"tsdf_integrate": 0, "dense_normal_eq": sum(dense.DEFAULT_ITERS) * (SLAM_FRAMES - 1),
-              "nn1": (icp.DEFAULT_ITERS + 1) * n_icp, "marching_cubes": 0}
+              "nn1": (icp.DEFAULT_ITERS + 1) * n_icp, "marching_cubes": 0, "hamming": 0}
     if slam_launches != expect:
         raise AssertionError(f"DenseSlam kernel launches {slam_launches}, expected {expect} ({n_icp} ICP calls)")
     est = slam.trajectory()
@@ -752,10 +1011,16 @@ def main() -> int:
     results["marching_cubes"] = phase8["kernel"]
     path_launches = [*slice_launches.values(), slam_launches, *phase8["launches"]]
 
-    # no single PyTorch call computes any of the four functions
+    # ---- 9. sparse: the Hamming kernel, FusedFBASlam, the FBAFusion mesh ----
+    phase9 = sparse_phase(cam, dev, scene, card, poses, grays, depths)
+    results["hamming"] = phase9["kernel"]
+
+    # the hamming launches are phase 9's counted runs; the other four keep
+    # the counts of phases 5, 7 and 8. No single PyTorch call computes any
+    # of the five functions.
     kernels = [
         dict(name=k.name, route="cuda", source=k.source, replaces=k.replaces,
-             launches=sum(n[k.name] for n in path_launches),
+             launches=sum(n[k.name] for n in (phase9["launches"] if k is _build.HAMMING else path_launches)),
              **results[k.name],
              roofline_share=results[k.name]["bound_ms"] / results[k.name]["ms"], library_ms=None)
         for k in _build.KERNELS

@@ -73,7 +73,13 @@ MARCHING_CUBES = Kernel(
     "onepiece_tpu_torch/csrc/marching_cubes.cu",
     "onepiece_tpu/ops/marching_cubes.py:82",
 )
-KERNELS = (TSDF_INTEGRATE, DENSE_NORMAL_EQ, NN1, MARCHING_CUBES)
+HAMMING = Kernel(
+    "hamming",
+    "onepiece_tpu_torch/csrc/hamming.cu",
+    "onepiece_tpu/ops/hamming.py:41 hamming_table (XLA, not Pallas) and its consumers :52, :78, "
+    "lcdetection/mild.py:55",
+)
+KERNELS = (TSDF_INTEGRATE, DENSE_NORMAL_EQ, NN1, MARCHING_CUBES, HAMMING)
 
 
 def reset_launch_counts() -> None:
@@ -160,6 +166,12 @@ _SIGNATURES = {
     "mc_count": [_VP, _VP, _VP, _I, _I, _F, _VP, _VP, _VP],
     # vox, slots, nbr, coords, rows, voxel, iso, list, listed, ends, verts, colors, stream
     "mc_emit": [_VP, _VP, _VP, _VP, _I, _F, _F, _VP, _I, _VP, _VP, _VP, _VP],
+    # a, b, valid_b, uv_pred (or null), uv_b (or null), window, N, M, best, dist (2, N), stream
+    "hamming_match": [_VP, _VP, _VP, _VP, _VP, _F, _I, _I, _VP, _VP, _VP],
+    # a, b, N, M, out (N, M), stream
+    "hamming_table": [_VP, _VP, _I, _I, _VP, _VP],
+    # q_desc, q_valid, db, db_valid, g (device int32), lut (64,), N, N_CAP, F, fs, stream
+    "mild_feature_scores": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP, _VP],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -4,7 +4,13 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
+
+
+def _recip(x: float) -> float:
+    """The float32 reciprocal of a float32 constant, as a Python float."""
+    return float(np.float32(1.0) / np.float32(x))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +51,14 @@ class PinholeCamera:
         u = pts[..., 0] / zsafe * self.fx + self.cx
         v = pts[..., 1] / zsafe * self.fy + self.cy
         return torch.stack([u, v], dim=-1), z
+
+    def backproject(self, uv: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+        """Pixels (..., 2) + depths (...,) -> camera-frame points (..., 3).
+        Divides by fx and fy as a multiply by their float32 reciprocals, as
+        XLA evaluates the JAX package's division by these jit constants."""
+        x = (uv[..., 0] - self.cx) * _recip(self.fx) * depth
+        y = (uv[..., 1] - self.cy) * _recip(self.fy) * depth
+        return torch.stack([x, y, depth], dim=-1)
 
     def backproject_grid(self, depth: torch.Tensor) -> torch.Tensor:
         """Depth image (H, W) -> camera-frame XYZ image (H, W, 3)."""

@@ -50,6 +50,18 @@ def kabsch(
     return make_T(R, t)
 
 
+_START: dict = {}
+
+
+def _start_vector(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The power iteration's start vector, copied to each device once (a
+    copy from the host in the loop would wait for the device)."""
+    key = (dtype, device)
+    if key not in _START:
+        _START[key] = torch.tensor([1.0, 0.01, 0.02, 0.03], dtype=dtype).to(device)
+    return _START[key]
+
+
 def kabsch_fast(
     src: torch.Tensor,
     dst: torch.Tensor,
@@ -80,7 +92,7 @@ def kabsch_fast(
     K2 = Kp @ Kp
     K4 = K2 @ K2
     K4 = K4 / torch.clamp(torch.sqrt(torch.sum(K4 * K4, dim=(-2, -1), keepdim=True)), min=1e-30)
-    v = torch.tensor([1.0, 0.01, 0.02, 0.03], dtype=K.dtype, device=K.device).expand(K.shape[:-1])
+    v = _start_vector(K.dtype, K.device).expand(K.shape[:-1])
     for _ in range(max(1, (POWER_ITERS + 3) // 4)):
         v = (K4 @ v[..., None])[..., 0]
     v = v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True), min=1e-30)

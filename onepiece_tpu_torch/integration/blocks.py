@@ -66,6 +66,7 @@ class TSDFVolume:
     max_weight: float = 100.0
     device: str | torch.device = "cuda"
     vox: torch.Tensor | None = dataclasses.field(default=None, repr=False)
+    max_blocks: int = 4096  # touched keys a frame's key pass returns; doubles when a frame fills it
 
     def __post_init__(self):
         if self.vox is None:
@@ -77,6 +78,7 @@ class TSDFVolume:
         self.block_coords = np.zeros((self.capacity, 3), np.int64)
         self.slot_of: dict[tuple[int, int, int], int] = {}
         self.num_active = 0
+        self.key_saturated_frames = 0  # frames whose touched keys filled max_blocks
 
     # -- the JAX package's fields, as views of the pool ----------------------
 
@@ -152,14 +154,28 @@ class TSDFVolume:
 
     def integrate(self, depth, rgb, T_wc, camera: PinholeCamera) -> int:
         """Allocate the frame's touched blocks and fuse one posed RGB-D frame
-        (`touched_block_keys` with the JAX package's defaults, max 4096 blocks
-        at a pixel stride of 4). Returns num_active."""
+        (`touched_block_keys` at a pixel stride of 4, as the JAX package
+        calls it). Returns num_active.
+
+        The key pass returns at most `max_blocks` keys. Where the host's read
+        of them shows the cap reached, the frame counts in
+        `key_saturated_frames` and the pass is redone at twice the cap (kept
+        for later frames) until the keys fit, so no block is dropped. (The
+        JAX package caps at 4096 and drops the rest without a word.)"""
         depth = self._tensor(depth)
-        keys = tsdf_ops.touched_block_keys(
-            depth, self._tensor(T_wc), camera.fx, camera.fy, camera.cx, camera.cy,
-            self.voxel_size, self.truncation,
-        )
-        return self.integrate_prepared(depth, rgb, T_wc, camera, tsdf_ops.unpack_block_keys(keys.cpu()))
+        T = self._tensor(T_wc)
+        saturated = False
+        while True:
+            keys = tsdf_ops.touched_block_keys(
+                depth, T, camera.fx, camera.fy, camera.cx, camera.cy, self.voxel_size, self.truncation,
+                max_blocks=self.max_blocks,
+            ).cpu()
+            if int((keys != tsdf_ops.INVALID_KEY).sum()) < self.max_blocks:
+                break
+            saturated = True
+            self.max_blocks *= 2
+        self.key_saturated_frames += saturated
+        return self.integrate_prepared(depth, rgb, T_wc, camera, tsdf_ops.unpack_block_keys(keys))
 
     # -- meshing ----------------------------------------------------------
 

@@ -11,6 +11,13 @@ therefore lags one frame: the host allocates the previous frame's blocks and
 `TSDFVolume.integrate_prepared` runs the TSDF kernel on them. (The JAX
 package runs the front end as one jitted program and starts its transfers
 with `copy_to_host_async`.)
+
+The key pass returns at most `max_blocks` keys. The host sees a frame's
+count only when it reads the copied keys, a frame later; where they filled
+the cap, the frame counts in `key_saturated_frames`, its key pass is redone
+at twice the cap (a wait for the device, in that frame only) until the keys
+fit, and later frames keep the larger cap. So no block is dropped. (The JAX
+package caps at 4096 and drops the rest without a word.)
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ class _Pending(NamedTuple):
     depth_filtered: torch.Tensor
     rgb: torch.Tensor
     T_world: torch.Tensor
+    max_blocks: int  # the cap of its key pass
     keys_host: torch.Tensor  # pinned on CUDA runs
     copied: torch.cuda.Event | None  # recorded after the copy (CUDA runs)
 
@@ -49,6 +57,7 @@ class PipelinedDenseFusion:
     truncation: float = 0.1
     volume_capacity: int = 8192
     integrate_stride: int = 1
+    max_blocks: int = 4096  # touched keys a frame's key pass returns; doubles when a frame fills it
 
     def __post_init__(self):
         self.device = torch.device(self.device)
@@ -64,6 +73,7 @@ class PipelinedDenseFusion:
         self._poses: list[torch.Tensor] = []
         self._rmses: list[torch.Tensor] = []
         self.frame_count = 0
+        self.key_saturated_frames = 0  # frames whose touched keys filled the cap
 
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32).to(self.device)
@@ -73,6 +83,7 @@ class PipelinedDenseFusion:
         c = self.camera
         keys = tsdf_ops.touched_block_keys(
             depth_filtered, T_w, c.fx, c.fy, c.cx, c.cy, self.voxel_size, self.truncation,
+            max_blocks=self.max_blocks,
         )
         if self.device.type != "cuda":
             return keys, None
@@ -99,11 +110,12 @@ class PipelinedDenseFusion:
             self._rel = res.T_ts
             rmse = res.rmse
         d_f = bilateral_filter(depth)
+        cap = self.max_blocks
         keys, event = self._keys(d_f, self._T_w)
         # integrate the PREVIOUS frame: its keys have had a frame to arrive
         self._drain_pending()
         if fidx % self.integrate_stride == 0:
-            self._pending = _Pending(d_f, rgb, self._T_w, keys, event)
+            self._pending = _Pending(d_f, rgb, self._T_w, cap, keys, event)
         self._prev_pyr = pyr
         self._poses.append(self._T_w)
         self._rmses.append(rmse)
@@ -111,11 +123,21 @@ class PipelinedDenseFusion:
     def _drain_pending(self) -> None:
         if self._pending is None:
             return
-        d_f, rgb, T_w, keys, event = self._pending
+        d_f, rgb, T_w, cap, keys, event = self._pending
         self._pending = None
         if event is not None:
             event.synchronize()
-        self.volume.integrate_prepared(d_f, rgb, T_w, self.camera, tsdf_ops.unpack_block_keys(keys.numpy()))
+        keys = keys.numpy()
+        if int((keys != tsdf_ops.INVALID_KEY).sum()) >= cap:
+            self.key_saturated_frames += 1
+            c = self.camera
+            while int((keys != tsdf_ops.INVALID_KEY).sum()) >= cap:
+                cap = max(self.max_blocks, 2 * cap)
+                keys = tsdf_ops.touched_block_keys(
+                    d_f, T_w, c.fx, c.fy, c.cx, c.cy, self.voxel_size, self.truncation, max_blocks=cap,
+                ).cpu().numpy()
+            self.max_blocks = cap
+        self.volume.integrate_prepared(d_f, rgb, T_w, self.camera, tsdf_ops.unpack_block_keys(keys))
 
     def finalize(self) -> tuple[np.ndarray, np.ndarray]:
         """Flush the lagged integration; returns (poses (N, 4, 4), rmses (N,))."""

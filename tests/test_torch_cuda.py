@@ -16,7 +16,10 @@ torch's); a whole 3-level tracking, kernel route against the plain route on
 the card, within 1e-3 (the hard depth gate can flip an inlier and carry a
 2e-7 difference to ~4e-4); nn1 indices equal and squared distances
 bit-equal (same expression, same order); marching cubes: the same
-triangles in the same order, bit-equal. The kernels are
+triangles in the same order, bit-equal; Hamming matching: best index,
+best and second distance equal (integers); MILD feature scores within
+1e-5 relative (each term bit-equal, sums in another order), candidates
+equal. The kernels are
 built without implicit FMA contraction (the TSDF transform's FMAs are
 explicit, and its plain version makes the same ones), so per-element
 arithmetic rounds as the plain versions' does and only the order of the
@@ -39,12 +42,15 @@ from onepiece_tpu_torch.ops import dense_odometry as dops
 from onepiece_tpu_torch.ops import marching_cubes as mc
 from onepiece_tpu_torch.ops.mc_tables import TRI_COUNTS
 from onepiece_tpu_torch.ops.mesh_dedup import dedup_triangle_soup as dedup_on_device
+from onepiece_tpu_torch.lcdetection import mild
+from onepiece_tpu_torch.ops import hamming
 from onepiece_tpu_torch.ops import nn1 as nn1_ops
 from onepiece_tpu_torch.ops import tsdf as tsdf_ops
 from onepiece_tpu_torch.ops import tsdf_slots
 from onepiece_tpu_torch.registration import icp
 from onepiece_tpu_torch.systems.dense_slam import DenseSlam
 from onepiece_tpu_torch.systems.fused_slam import FusedDenseFusion
+from onepiece_tpu_torch.systems.fused_sparse import FusedFBASlam
 from onepiece_tpu_torch.utils import synthetic
 
 pytestmark = pytest.mark.cuda
@@ -262,7 +268,8 @@ def test_slice_on_the_card_matches_cpu(dev, frames):
     on_card.process_chunk(g, d)
     est_card, _ = on_card.finalize()
     assert {k.name: k.launches for k in _build.KERNELS} == {
-        "tsdf_integrate": 4, "dense_normal_eq": 3 * sum(on_card.iters), "nn1": 0, "marching_cubes": 0}
+        "tsdf_integrate": 4, "dense_normal_eq": 3 * sum(on_card.iters), "nn1": 0, "marching_cubes": 0,
+        "hamming": 0}
     on_cpu = FusedDenseFusion(cam, device="cpu", **kw)
     on_cpu.process_chunk(g.cpu(), d.cpu())
     est_cpu, _ = on_cpu.finalize()
@@ -392,7 +399,7 @@ def test_dense_slam_on_the_card(dev, slam_frames):
     launches = {k.name: k.launches for k in _build.KERNELS}
     assert len(icp_calls) >= 2
     assert launches == {"tsdf_integrate": 0, "dense_normal_eq": 11 * sum(dense.DEFAULT_ITERS),
-                        "nn1": (icp.DEFAULT_ITERS + 1) * len(icp_calls), "marching_cubes": 0}
+                        "nn1": (icp.DEFAULT_ITERS + 1) * len(icp_calls), "marching_cubes": 0, "hamming": 0}
     on_cpu = _dense_slam("cpu", grays.cpu(), depths.cpu())
     flags = [[m["icp_ok"] for m in s.metrics if "icp_ok" in m] for s in (on_card, on_cpu)]
     assert flags[0] == flags[1] == [False, True, True]
@@ -644,3 +651,61 @@ def test_device_dedup_equals_numpy_on_a_fused_soup(dev, frames):
     for a, b in zip(mine, ref):
         assert a.is_cuda
         np.testing.assert_array_equal(a.cpu().numpy(), b)
+
+
+def _random_words(rng, shape) -> np.ndarray:
+    return rng.integers(0, 2**32, shape + (8,), dtype=np.uint64).astype(np.uint32).view(np.int32)
+
+
+@pytest.mark.parametrize("n,m", [(1, 2), (63, 65), (1000, 1000), (700, 1300)])
+def test_hamming_match_kernel_vs_plain(dev, n, m):
+    """Best index, best and second distance equal, with duplicated targets
+    (ties), invalid targets, and windows, at tile edges and the path's 1000."""
+    rng = np.random.default_rng(n + m)
+    b = _random_words(rng, (m,))
+    b[1::3] = b[0:-1:3]
+    a = b[rng.integers(0, m, n)] ^ (rng.random((n, 8)) < 0.05).astype(np.int32)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
+    vb = t(rng.random(m) > 0.2)
+    uva = t(rng.uniform(0, 640, (n, 2)).astype(np.float32))
+    uvb = t(rng.uniform(0, 640, (m, 2)).astype(np.float32))
+    for args in ((t(a), t(b), vb), (t(a), t(b), vb, uva, uvb, 20.0), (t(a), t(b), vb, uva, uvb, 1000.0)):
+        k = hamming.hamming_match(*args)
+        p = hamming.hamming_match_reference(*args)
+        torch.cuda.synchronize()
+        for x, y in zip(k, p):
+            assert torch.equal(x, y)
+    assert torch.equal(hamming.hamming_table(t(a), t(b)), hamming.hamming_table_reference(t(a), t(b)))
+
+
+def test_mild_feature_scores_kernel_vs_plain(dev):
+    """fs within 1e-5 relative at 1000 queries x 128 keyframes x 1000
+    features, g = 39 (rows past g skipped on the device), candidates equal."""
+    rng = np.random.default_rng(7)
+    q = _random_words(rng, (1000,))
+    db = _random_words(rng, (128, 1000))
+    db[:, :400] = q[None, :400] ^ (rng.random((128, 400, 8)) < 0.04).astype(np.int32)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
+    qv, dbv = t(rng.random(1000) > 0.1), t(rng.random((128, 1000)) > 0.2)
+    g = torch.tensor(39, device=dev)
+    fk = mild.mild_feature_scores(t(q), qv, t(db), dbv, g)
+    fp = mild.mild_feature_scores_reference(t(q), qv, t(db), dbv, g)
+    assert float(fp.max()) > 0 and bool((fk[:, 39:] == 0).all())
+    assert float((fk - fp).abs().max()) <= 1e-5 * float(fp.abs().max())
+    rest = (g, g - 1, torch.tensor(-1, device=dev))
+    ck, ok_k = mild.lc_candidates_device(t(q), qv, t(db), dbv, *rest)
+    cp, ok_p = mild.candidates_from_scores(fp, qv, *rest)
+    assert torch.equal(ck, cp) and torch.equal(ok_k, ok_p)
+
+
+def test_fused_sparse_on_the_card(dev, frames):
+    """FusedFBASlam at 160x120 on the card: the Hamming kernel is launched,
+    the trajectory is finite and close to the ground truth."""
+    poses, grays, depths = frames
+    _build.reset_launch_counts()
+    slam = FusedFBASlam(CAM, device=dev, max_keypoints=500, keyframe_disparity=10.0)
+    slam.process_chunk(grays, depths)
+    assert _build.HAMMING.launches >= 2 * (len(grays) - 1)
+    est = slam.trajectory()
+    assert np.isfinite(est).all() and slam.edge_overflow == 0
+    assert traj.ate_rmse(est, poses) < 0.05

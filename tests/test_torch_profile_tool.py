@@ -42,3 +42,18 @@ def test_dense_slam_profile_tool_reports_every_layer_on_cpu(capsys):
     assert all(ms > 0 for name, ms in layers["ms"].items() if name != "rest of update_frame")
     assert out["host_sync_sites"] is None
     assert out["profile"]["wall_ms"] > 0 and out["profile"]["device_busy_ms"] is None
+
+
+def test_sparse_profile_tool_reports_every_stage_on_cpu(capsys):
+    import profile_torch_sparse
+
+    assert profile_torch_sparse.main(
+        ["--device", "cpu", "--level", "2", "--frames", "4", "--chunk", "4", "--max-keypoints", "200",
+         "--render-steps", "24"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["size"] == "160x120" and out["device"] == "cpu" and out["frames"] == 4
+    stages = out["stages"]
+    assert list(stages["ms"]) == list(profile_torch_sparse.STAGES) + ["rest of process_chunk"]
+    assert stages["calls"]["tracking loop"] == 4 and stages["calls"]["features"] == 1
+    assert stages["ms"]["tracking loop"] > 0
+    assert out["host_sync_sites"] is None and out["profile"]["device_busy_ms"] is None
