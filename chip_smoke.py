@@ -50,10 +50,15 @@ Phases, in order; any failure exits non-zero before the final `ok` line:
   9. sparse: the Hamming kernel (`csrc/hamming.cu`) against its plain
      versions at the sparse path's shapes: `hamming_match` on the 1000
      descriptors of orbit frames 0 and 1, unwindowed and windowed (20 px
-     around the ground-truth prediction), indices and distances equal;
-     `mild_feature_scores` of the last loop frame's 1000 descriptors against
-     the 100-frame loop's 128 x 1000 keyframe database with g = 39, within
-     1e-5 relative and its loop-closure candidates equal; each timed. Then,
+     around the ground-truth prediction), and on an all-valid 1000 x 1000
+     pair of seeded random descriptors, indices and distances equal;
+     `hamming_table` at 1000 x 1000, equal; `mild_feature_scores` of the
+     last loop frame's 1000 descriptors against the 100-frame loop's 128 x
+     1000 keyframe database with g = 39, within 1e-5 relative, two calls
+     bit-equal and its loop-closure candidates equal; each timed, with the
+     launch floor (a one-element `fill_` in the same profiler session)
+     beside it, and each failing if the profiler saw any other kernel
+     launched in its session (one kernel a call). Then,
      launches counted and host syncs counted, `FusedFBASlam` (defaults) on
      the 16-frame orbit in one chunk (ATE <= 15 mm, no edge overflow; ms per
      frame over 5 runs after a warm run) and on the 100-frame
@@ -74,7 +79,8 @@ adds the same for the rgb form (rgb_*), the gray form at K = 16384
 could take for the same work, the larger of bytes over 3.35 TB/s and
 float32 operations over 67 TFLOP/s, the published H100 SXM peaks at 700 W
 (hamming: __popc counts over PEAK_POPC_PER_S);
-roofline_share = bound_ms / ms), the card line, then
+roofline_share = bound_ms / ms; the hamming entry adds the windowed, the
+all-valid and the MILD times, bounds and shares, and the launch floor), the card line, then
 {"ok": true, "device": {...}} as the last line.
 """
 
@@ -134,6 +140,7 @@ FBA_VOXEL = 0.02  # tools/fba_fusion.py's mesh step: voxel 0.02 m, truncation 5 
 FBA_STRIDE = 8
 MILD_G = 39  # keyframes in the loop's database when the MILD kernel is checked
 MILD_DB_ROWS = 128  # the loop's database capacity after its doublings
+ALL_VALID_SEED = 0  # the all-valid 1000 x 1000 hamming_match pair of random descriptors
 
 
 def bound(n_bytes: float, n_ops: float, peak_ops_per_s: float = PEAK_F32_PER_S) -> dict:
@@ -147,19 +154,18 @@ def bound(n_bytes: float, n_ops: float, peak_ops_per_s: float = PEAK_F32_PER_S) 
     return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def device_ms(fn, kernels: tuple[str, ...], calls: int = 20, attempts: int = 3) -> float:
-    """Device time per fn() call in the kernels whose names hold one of
-    `kernels` (each launched once per call): the sum of each kernel's mean
-    duration as the profiler (CUPTI) records it. A mean per kernel stays
-    right when the profiler drops some records. CUDA events around
-    back-to-back calls also count the time the device waits for the host
-    to enqueue the next launch.
+def device_times(fn, kernels: tuple[str, ...], calls: int = 20, attempts: int = 3) -> dict:
+    """The profiler's (CUPTI's) record of `calls` fn() calls: `ms`, each of
+    `kernels`' mean duration (the kernels whose names hold that string), or
+    None where no session recorded every one of them; `per_call`, their
+    launches per call; `other`, the launches per call of any other kernel;
+    `seen`, the kernel names recorded. A mean per kernel stays right when
+    the profiler drops some records. CUDA events around back-to-back calls
+    also count the time the device waits for the host to enqueue the next
+    launch.
 
     The profiler on the card now and then records no device activity in a
-    session; the session is then repeated, up to `attempts` times. If none
-    of them records every kernel, the time is that of CUDA events around
-    each single call (the median over `calls`), which also counts the
-    wrapper's other work, and a note on stderr says so."""
+    session; the session is then repeated, up to `attempts` times."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -172,14 +178,30 @@ def device_ms(fn, kernels: tuple[str, ...], calls: int = 20, attempts: int = 3) 
                 fn()
             torch.cuda.synchronize()
         us = {k: [] for k in kernels}
+        other = 0
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 seen.add(e.name)
-                for k in kernels:
-                    if k in e.name:
-                        us[k].append(e.time_range.elapsed_us())
+                hits = [k for k in kernels if k in e.name]
+                for k in hits:
+                    us[k].append(e.time_range.elapsed_us())
+                other += not hits
         if all(us.values()):
-            return sum(float(np.mean(v)) for v in us.values()) / 1e3
+            return dict(ms={k: float(np.mean(v)) / 1e3 for k, v in us.items()},
+                        per_call={k: len(v) / calls for k, v in us.items()}, other=other / calls, seen=seen)
+    return dict(ms=None, per_call=None, other=None, seen=seen)
+
+
+def device_ms(fn, kernels: tuple[str, ...], calls: int = 20, attempts: int = 3) -> float:
+    """Device time per fn() call in the kernels whose names hold one of
+    `kernels` (each launched once per call): the sum of each kernel's mean
+    duration as the profiler records it (`device_times`). If no session
+    records every kernel, the time is that of CUDA events around each
+    single call (the median over `calls`), which also counts the wrapper's
+    other work, and a note on stderr says so."""
+    rec = device_times(fn, kernels, calls, attempts)
+    if rec["ms"] is not None:
+        return sum(rec["ms"].values())
     start = [torch.cuda.Event(enable_timing=True) for _ in range(calls)]
     end = [torch.cuda.Event(enable_timing=True) for _ in range(calls)]
     for i in range(calls):
@@ -188,8 +210,8 @@ def device_ms(fn, kernels: tuple[str, ...], calls: int = 20, attempts: int = 3) 
         end[i].record()
     torch.cuda.synchronize()
     ms = float(np.median([a.elapsed_time(b) for a, b in zip(start, end)]))
-    print(f"note: in {attempts} profiler sessions the device time of {[k for k, v in us.items() if not v]} was "
-          f"not recorded ({len(seen)} device kernel names seen: {sorted(seen)[:8]}); timed {kernels} by CUDA "
+    print(f"note: in {attempts} profiler sessions the device time of {kernels} was not all recorded "
+          f"({len(rec['seen'])} device kernel names seen: {sorted(rec['seen'])[:8]}); timed {kernels} by CUDA "
           f"events around each single call instead: {ms:.4f} ms", file=sys.stderr, flush=True)
     return ms
 
@@ -500,18 +522,92 @@ def mesh_phase(cam, dev, scene, card, poses, grays, depths, fused, dslam, s_gray
 
 def hamming_bytes_ops(a, b, vb, uv_pred=None, uv_b=None, window: float = 0.0) -> tuple[int, int]:
     """What `hamming_match` must move and compute on these inputs: each
-    descriptor (32 B), validity (1 B) and uv (8 B, windowed) read once, 12 B
-    a query written; 8 __popc for every (query, valid target in the window)."""
-    n, m = a.shape[0], b.shape[0]
-    n_bytes = 32 * (n + m) + m + 12 * n
+    query's descriptor (32 B) and, windowed, its uv (8 B) read once; the
+    validity of every target (1 B) and, of the valid targets only, the
+    descriptor (32 B) and, windowed, the uv (8 B); 16 B a query written
+    (int64 index, two int32 distances); 8 __popc for every (query, valid
+    target in the window)."""
+    n, m, n_valid = a.shape[0], b.shape[0], int(vb.sum())
+    n_bytes = 32 * n + m + 32 * n_valid + 16 * n
     if uv_pred is None:
-        pairs = n * int(vb.sum())
+        pairs = n * n_valid
     else:
-        n_bytes += 8 * (n + m)
+        n_bytes += 8 * (n + n_valid)
         inwin = ((uv_pred[:, None, 0] - uv_b[None, :, 0]).abs() <= window) & \
                 ((uv_pred[:, None, 1] - uv_b[None, :, 1]).abs() <= window)
         pairs = int((inwin & vb[None]).sum())
     return n_bytes, 8 * pairs
+
+
+def mild_bytes_ops(q_desc, q_valid, db_desc, db_valid, g) -> tuple[int, int]:
+    """What `mild_feature_scores` must move and compute: the validity of
+    every query (1 B) and of every feature of the live keyframes (1 B), the
+    descriptors (32 B) of the valid ones only, g (8 B) and the table (256 B)
+    read once; fs (4 B an entry) written; 8 __popc for every (valid query,
+    valid feature of a keyframe k < g)."""
+    n, (n_cap, f) = q_desc.shape[0], db_desc.shape[:2]
+    live = min(n_cap, int(g))
+    n_q, n_f = int(q_valid.sum()), int(db_valid[:live].sum())
+    n_bytes = n + 32 * n_q + live * f + 32 * n_f + 4 * n * n_cap + 8 + 256
+    return n_bytes, 8 * n_q * n_f
+
+
+def hamming_forms(cam, dev, poses, grays, depths) -> dict:
+    """The `hamming_match` inputs phase 9 holds and times: the 1000
+    descriptors of orbit frames 0 and 1 (the path's shape, most invalid),
+    unwindowed and windowed (20 px around the ground-truth prediction), and
+    an all-valid 1000 x 1000 pair of random descriptors drawn from
+    ALL_VALID_SEED, what a real camera frame with 1,000 keypoints gives."""
+    from onepiece_tpu_torch.odometry import sparse
+
+    fr = sparse.extract_sparse_frames_batch(grays[:2], depths[:2], cam, max_keypoints=1000, threshold=0.01)
+    src, tgt = (sparse.map_frame(lambda t: t[i].contiguous(), fr) for i in (0, 1))
+    T_ts = torch.from_numpy(np.linalg.inv(poses[1]) @ poses[0]).to(dev, torch.float32)
+    uv_pred = cam.project(src.points @ T_ts[:3, :3].T + T_ts[:3, 3])[0].contiguous()
+    rng = np.random.default_rng(ALL_VALID_SEED)
+    rand = [torch.from_numpy(rng.integers(0, 2**32, (1000, 8), dtype=np.uint64).astype(np.uint32).view(np.int32))
+            .to(dev) for _ in range(2)]
+    return {"1000x1000": (src.kp.desc, tgt.kp.desc, tgt.valid),
+            "windowed 20 px": (src.kp.desc, tgt.kp.desc, tgt.valid, uv_pred, tgt.kp.uv, 20.0),
+            "all-valid 1000x1000": (*rand, torch.ones(1000, dtype=torch.bool, device=dev))}
+
+
+def mild_args(cam, loop, l_grays, l_depths) -> tuple:
+    """`mild_feature_scores` at the loop's shape: the last loop frame's 1000
+    descriptors against the loop's 128 x 1000 keyframe database, g = 39."""
+    from onepiece_tpu_torch.odometry import sparse
+
+    st = loop._state
+    q = sparse.extract_sparse_frames_batch(l_grays[-1:], l_depths[-1:], cam, max_keypoints=1000, threshold=0.01)
+    g = torch.full((), MILD_G, dtype=torch.int64, device=l_grays.device)
+    return q.kp.desc[0].contiguous(), q.valid[0].contiguous(), st.kf.kp.desc, st.kf.valid, g
+
+
+def timed_beside_floor(fn, name: str) -> dict:
+    """Device ms of kernel `name` per fn() call, the kernels fn launches per
+    call, and the launch floor: the device ms of a one-element `fill_`, the
+    smallest kernel the card runs, in the same profiler session. `other` is
+    the launches per call of any kernel but those two: a wrapper that
+    launches one kernel a call has 0. Without a full profiler record: ms by
+    CUDA events (`device_ms`), the rest None."""
+    one = torch.zeros(1, device="cuda")
+    rec = device_times(lambda: (fn(), one.fill_(1.0)), (name, "FillFunctor"))
+    if rec["ms"] is None:
+        return dict(ms=device_ms(fn, (name,)), kernels_per_call=None, other=None, floor_ms=None)
+    return dict(ms=rec["ms"][name], kernels_per_call=rec["per_call"][name] + rec["other"], other=rec["other"],
+                floor_ms=rec["ms"]["FillFunctor"])
+
+
+def require_one_kernel(t: dict, what: str) -> None:
+    """Fails unless the profiler saw no kernel but `what`'s own (and the
+    floor's fill_) in its session; says so on stderr where it recorded none.
+    The per-call count of the kernel itself is not used: the profiler drops
+    some records, so it reads under 1."""
+    if t["other"] is None:
+        print(f"note: {what}: the profiler recorded no session, kernels a call not checked", file=sys.stderr,
+              flush=True)
+    elif t["other"] != 0:
+        raise AssertionError(f"{what}: {t['other']} other kernels a call (one kernel a call required)")
 
 
 def sparse_phase(cam, dev, scene, card, poses, grays, depths) -> dict:
@@ -523,7 +619,6 @@ def sparse_phase(cam, dev, scene, card, poses, grays, depths) -> dict:
     from onepiece_tpu_torch.io import trajectory as traj
     from onepiece_tpu_torch.io.ply import dedup_triangle_soup
     from onepiece_tpu_torch.lcdetection import mild
-    from onepiece_tpu_torch.odometry import sparse
     from onepiece_tpu_torch.ops import hamming
     from onepiece_tpu_torch.ops.image import bilateral_filter
     from onepiece_tpu_torch.ops.mesh_dedup import dedup_triangle_soup as dedup_on_device
@@ -533,13 +628,8 @@ def sparse_phase(cam, dev, scene, card, poses, grays, depths) -> dict:
     zero = {k.name: 0 for k in _build.KERNELS}
     res = {}
 
-    # -- (a) hamming_match at 1000 x 1000 on a real 640x480 frame pair --
-    fr = sparse.extract_sparse_frames_batch(grays[:2], depths[:2], cam, max_keypoints=1000, threshold=0.01)
-    src, tgt = (sparse.map_frame(lambda t: t[i].contiguous(), fr) for i in (0, 1))
-    T_ts = torch.from_numpy(np.linalg.inv(poses[1]) @ poses[0]).to(dev, torch.float32)
-    uv_pred = cam.project(src.points @ T_ts[:3, :3].T + T_ts[:3, 3])[0].contiguous()
-    forms = {"1000x1000": (src.kp.desc, tgt.kp.desc, tgt.valid),
-             "windowed 20 px": (src.kp.desc, tgt.kp.desc, tgt.valid, uv_pred, tgt.kp.uv, 20.0)}
+    # -- (a) hamming_match at 1000 x 1000: a real 640x480 frame pair, and all-valid --
+    forms = hamming_forms(cam, dev, poses, grays, depths)
     for form, args in forms.items():
         k = hamming.hamming_match(*args)
         p = hamming.hamming_match_reference(*args)
@@ -548,17 +638,26 @@ def sparse_phase(cam, dev, scene, card, poses, grays, depths) -> dict:
             raise AssertionError(f"hamming_match {form}: kernel and plain version differ "
                                  f"({int((k[0] != p[0]).sum())} indices, {int((k[1] != p[1]).sum())} best, "
                                  f"{int((k[2] != p[2]).sum())} second distances)")
-        ms = device_ms(lambda: hamming.hamming_match(*args), ("hamming_match_kernel",))
+        t = timed_beside_floor(lambda: hamming.hamming_match(*args), "hamming_match_kernel")
+        require_one_kernel(t, f"hamming_match {form}")
         event_ms = cuda_ms(lambda: hamming.hamming_match(*args))
         plain_ms = cuda_ms(lambda: hamming.hamming_match_reference(*args), reps=5)
         n_bytes, n_popc = hamming_bytes_ops(*args)
         b = bound(n_bytes, n_popc, PEAK_POPC_PER_S)
-        res[form] = dict(ms=ms, event_ms=event_ms, plain_ms=plain_ms, **b)
+        res[form] = dict(ms=t["ms"], event_ms=event_ms, plain_ms=plain_ms, **b)
+        res[form].update(kernels_per_call=t["kernels_per_call"], other_kernels=t["other"],
+                         floor_ms=t["floor_ms"])
         print(f"hamming_match {form}: {args[0].shape[0]} queries, {args[1].shape[0]} targets "
               f"({int(args[2].sum())} valid): indices, best and second distances equal to the plain version "
-              f"({int((k[1] <= 64).sum())} best <= 64); kernel {ms:.4f} ms on the device ({event_ms:.4f} ms by "
-              f"events), plain {plain_ms:.4f} ms, bound {b['bound_ms']:.5f} ms ({b['bound_by']}: {n_popc} popc, "
-              f"{n_bytes} B), roofline share {b['bound_ms'] / ms:.3f}", flush=True)
+              f"({int((k[1] <= 64).sum())} best <= 64); kernel {t['ms']:.4f} ms on the device ({event_ms:.4f} ms by "
+              f"events; {t['other']} other kernels a call; launch floor, a one-element fill_ in the same "
+              f"profiler session, {t['floor_ms']} ms), plain {plain_ms:.4f} ms, bound {b['bound_ms']:.5f} ms "
+              f"({b['bound_by']}: {n_popc} popc, {n_bytes} B), roofline share {b['bound_ms'] / t['ms']:.3f}",
+              flush=True)
+    a, b_, _ = forms["1000x1000"]
+    if not torch.equal(hamming.hamming_table(a, b_), hamming.hamming_table_reference(a, b_)):
+        raise AssertionError("hamming_table: kernel and plain version differ at 1000 x 1000")
+    print("hamming_table 1000 x 1000 (orbit frames 0 and 1, every target): equal to the plain version", flush=True)
 
     # -- (b) FusedFBASlam on the 16-frame orbit, one chunk --
     def run_orbit():
@@ -628,13 +727,11 @@ def sparse_phase(cam, dev, scene, card, poses, grays, depths) -> dict:
           f"(runs {[round(t, 3) for t in times]}) on {card}", flush=True)
 
     # -- (a) mild_feature_scores: 1000 queries x the loop's 128 x 1000 database, g = 39 --
-    st = loop._state
-    db_desc, db_valid = st.kf.kp.desc, st.kf.valid
-    q = sparse.extract_sparse_frames_batch(l_grays[-1:], l_depths[-1:], cam, max_keypoints=1000, threshold=0.01)
-    q_desc, q_valid = q.kp.desc[0].contiguous(), q.valid[0].contiguous()
-    g = torch.full((), MILD_G, dtype=torch.int64, device=dev)
-    fk = mild.mild_feature_scores(q_desc, q_valid, db_desc, db_valid, g)
-    fp = mild.mild_feature_scores_reference(q_desc, q_valid, db_desc, db_valid, g)
+    margs = mild_args(cam, loop, l_grays, l_depths)
+    q_desc, q_valid, db_desc, db_valid, g = margs
+    fk = mild.mild_feature_scores(*margs)
+    fk2 = mild.mild_feature_scores(*margs)
+    fp = mild.mild_feature_scores_reference(*margs)
     rest = (g, g - 1, torch.full((), -1, dtype=torch.int64, device=dev))
     ck, okk = mild.lc_candidates_device(q_desc, q_valid, db_desc, db_valid, *rest)
     cp, okp = mild.candidates_from_scores(fp, q_valid, *rest)
@@ -642,28 +739,31 @@ def sparse_phase(cam, dev, scene, card, poses, grays, depths) -> dict:
     err = float((fk - fp).abs().max())
     rel = err / max(float(fp.abs().max()), 1e-30)
     if not (db_desc.shape[0] == MILD_DB_ROWS and float(fp.max()) > 0 and rel <= 1e-5
-            and torch.equal(ck, cp) and torch.equal(okk, okp)):
+            and torch.equal(ck, cp) and torch.equal(okk, okp) and torch.equal(fk, fk2)):
         raise AssertionError(f"mild_feature_scores: DB {tuple(db_desc.shape)}, rel err {rel} (<= 1e-5), "
-                             f"candidates {ck.tolist()} {okk.tolist()} vs plain {cp.tolist()} {okp.tolist()}")
-    mild_args = (q_desc, q_valid, db_desc, db_valid, g)
-    ms = device_ms(lambda: mild.mild_feature_scores(*mild_args), ("mild_feature_scores_kernel",))
-    event_ms = cuda_ms(lambda: mild.mild_feature_scores(*mild_args))
-    plain_ms = cuda_ms(lambda: mild.mild_feature_scores_reference(*mild_args), reps=3, warmup=1)
-    n_cap, f = db_desc.shape[:2]
-    rows = db_valid[:MILD_G]
-    n_bytes = 33 * f + 33 * MILD_G * f + 4 * q_desc.shape[0] * n_cap + 4 + 256
-    n_popc = 8 * int(q_valid.sum()) * int(rows.sum())
+                             f"candidates {ck.tolist()} {okk.tolist()} vs plain {cp.tolist()} {okp.tolist()}, "
+                             f"two calls bit-equal {torch.equal(fk, fk2)}")
+    t = timed_beside_floor(lambda: mild.mild_feature_scores(*margs), "mild_feature_scores_kernel")
+    require_one_kernel(t, "mild_feature_scores")
+    ms = t["ms"]
+    event_ms = cuda_ms(lambda: mild.mild_feature_scores(*margs))
+    plain_ms = cuda_ms(lambda: mild.mild_feature_scores_reference(*margs), reps=3, warmup=1)
+    n_bytes, n_popc = mild_bytes_ops(*margs)
     b = bound(n_bytes, n_popc, PEAK_POPC_PER_S)
     print(f"mild_feature_scores: {q_desc.shape[0]} queries ({int(q_valid.sum())} valid) x DB {tuple(db_desc.shape)}, "
-          f"g = {MILD_G} ({int(rows.sum())} valid features): max abs err {err:.3g} (rel {rel:.3g}), candidates "
-          f"{ck.tolist()} ({int(okk.sum())} salient) equal; kernel {ms:.4f} ms on the device ({event_ms:.4f} ms by "
-          f"events), plain {plain_ms:.4f} ms, bound {b['bound_ms']:.5f} ms ({b['bound_by']}: {n_popc} popc, "
-          f"{n_bytes} B), roofline share {b['bound_ms'] / ms:.3f}", flush=True)
-    m1 = res["1000x1000"]
-    kernel = dict(max_abs_err=err, **m1, windowed_ms=res["windowed 20 px"]["ms"],
-                  windowed_plain_ms=res["windowed 20 px"]["plain_ms"],
-                  windowed_bound_ms=res["windowed 20 px"]["bound_ms"], mild_ms=ms, mild_event_ms=event_ms,
-                  mild_plain_ms=plain_ms, mild_bound_ms=b["bound_ms"])
+          f"g = {MILD_G} ({int(db_valid[:MILD_G].sum())} valid features): max abs err {err:.3g} (rel {rel:.3g}), "
+          f"two calls bit-equal, candidates {ck.tolist()} ({int(okk.sum())} salient) equal; kernel {ms:.4f} ms on "
+          f"the device ({event_ms:.4f} ms by events; {t['other']} other kernels a call; launch floor "
+          f"{t['floor_ms']} ms), plain {plain_ms:.4f} ms, bound {b['bound_ms']:.5f} ms ({b['bound_by']}: "
+          f"{n_popc} popc, {n_bytes} B), roofline share {b['bound_ms'] / ms:.3f}", flush=True)
+    m1, win, full = res["1000x1000"], res["windowed 20 px"], res["all-valid 1000x1000"]
+    kernel = dict(max_abs_err=err, **m1, windowed_ms=win["ms"], windowed_plain_ms=win["plain_ms"],
+                  windowed_bound_ms=win["bound_ms"], windowed_share=win["bound_ms"] / win["ms"],
+                  all_valid_ms=full["ms"], all_valid_plain_ms=full["plain_ms"], all_valid_bound_ms=full["bound_ms"],
+                  all_valid_share=full["bound_ms"] / full["ms"], mild_ms=ms, mild_event_ms=event_ms,
+                  mild_plain_ms=plain_ms, mild_bound_ms=b["bound_ms"], mild_share=b["bound_ms"] / ms,
+                  mild_kernels_per_call=t["kernels_per_call"], mild_other_kernels=t["other"],
+                  launch_floor_ms=t["floor_ms"], table_equal=True)
 
     # -- (d) the FBAFusion mesh of the loop: every 8th frame at the optimised poses --
     _build.reset_launch_counts()

@@ -166,11 +166,11 @@ _SIGNATURES = {
     "mc_count": [_VP, _VP, _VP, _I, _I, _F, _VP, _VP, _VP],
     # vox, slots, nbr, coords, rows, voxel, iso, list, listed, ends, verts, colors, stream
     "mc_emit": [_VP, _VP, _VP, _VP, _I, _F, _F, _VP, _I, _VP, _VP, _VP, _VP],
-    # a, b, valid_b, uv_pred (or null), uv_b (or null), window, N, M, best, dist (2, N), stream
+    # a, b, valid_b, uv_pred (or null), uv_b (or null), window, N, M, best (int64), dist (2, N), stream
     "hamming_match": [_VP, _VP, _VP, _VP, _VP, _F, _I, _I, _VP, _VP, _VP],
     # a, b, N, M, out (N, M), stream
     "hamming_table": [_VP, _VP, _I, _I, _VP, _VP],
-    # q_desc, q_valid, db, db_valid, g (device int32), lut (64,), N, N_CAP, F, fs, stream
+    # q_desc, q_valid, db, db_valid, g (device int64), lut (64,), N, N_CAP, F, fs, stream
     "mild_feature_scores": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP, _VP],
 }
 
@@ -199,8 +199,10 @@ def stream_handle(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple, device) -> None:
-    """Check what a kernel takes: device, dtype, shape (None = any), contiguity."""
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple, device, align: int = 1) -> None:
+    """Check what a kernel takes: device, dtype, shape (None = any),
+    contiguity, and the address's alignment in bytes where the kernel reads
+    vectors."""
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -211,3 +213,5 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple, device
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: address not aligned to {align} bytes")

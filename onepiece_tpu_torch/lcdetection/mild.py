@@ -13,12 +13,12 @@ statistics then work on that table.
 
 The JAX package materialises the (N, N_CAP * F) distance table for every
 query. `mild_feature_scores` never writes it: on the card
-(`csrc/hamming.cu`) a block stages one keyframe's descriptors in shared
-memory and each thread sums its query feature's terms, reading the term
-from a 64-entry table; keyframe rows k >= g (a device scalar) are skipped
-without a host read. On CPU tensors the plain version computes the same
-terms from the same table, so every term is bit-equal and only the order of
-the sums differs.
+(`csrc/hamming.cu`) a block lists one keyframe's valid features in shared
+memory and each valid query feature gets a thread that sums its terms in
+feature order, reading the term from a 64-entry table; keyframe rows k >= g
+(a device int64 scalar) are written 0 without a host read. On CPU tensors
+the plain version computes the same terms from the same table, so every
+term is bit-equal and only the order of the sums differs.
 """
 
 from __future__ import annotations
@@ -73,13 +73,14 @@ def _mild_feature_scores_cuda(q_desc, q_valid, db_desc, db_valid, g):
     dev = q_desc.device
     n = q_desc.shape[0]
     n_cap, f = db_desc.shape[:2]
-    _build.require(q_desc, "q_desc", torch.int32, (n, 8), dev)
+    _build.require(q_desc, "q_desc", torch.int32, (n, 8), dev, align=16)
     _build.require(q_valid, "q_valid", torch.bool, (n,), dev)
-    _build.require(db_desc, "db_desc", torch.int32, (n_cap, f, 8), dev)
+    _build.require(db_desc, "db_desc", torch.int32, (n_cap, f, 8), dev, align=16)
     _build.require(db_valid, "db_valid", torch.bool, (n_cap, f), dev)
-    # a Python int becomes a device scalar by a fill, not a copy from the host
-    g = (torch.full((), g, dtype=torch.int32, device=dev) if isinstance(g, int)
-         else g.to(device=dev, dtype=torch.int32).reshape(()))
+    # a Python int becomes a device scalar by a fill, not a copy from the
+    # host; the path's int64 device scalar is read by the kernel as it is
+    g = (torch.full((), g, dtype=torch.int64, device=dev) if isinstance(g, int)
+         else g.to(device=dev, dtype=torch.int64).reshape(()))
     fs = torch.empty((n, n_cap), dtype=torch.float32, device=dev)
     if n == 0 or n_cap == 0:
         return fs

@@ -6,9 +6,10 @@ int32: the JAX package's uint32 words, bit for bit.
 
 The JAX package builds the whole (N, M) distance table as a +-1 bf16 matmul
 on the MXU and reduces it with `top_k` / `argmin`. Here the table is never
-written on the card: `hamming_match` (`csrc/hamming.cu`) gives each query a
-thread that keeps its best index, best distance and second distance while
-it streams the targets through shared memory with XOR + `__popc`. On CPU
+written on the card: `hamming_match` (`csrc/hamming.cu`) lists the valid
+targets in shared memory and gives each query a warp whose lanes split them,
+each keeping a best index, best distance and second distance from XOR +
+`__popc`, merged across the lanes by (distance, index). On CPU
 tensors the plain versions below run: XOR and a SWAR popcount in int64
 (exact), then the same reductions the JAX package makes. Ties go to the
 lowest target index, as `lax.top_k` and `argmin` break them, and the second
@@ -77,17 +78,17 @@ def hamming_match_reference(
 def _hamming_match_cuda(desc_a, desc_b, valid_b, uv_pred_a, uv_b, window):
     dev = desc_a.device
     n, m = desc_a.shape[0], desc_b.shape[0]
-    _build.require(desc_a, "desc_a", torch.int32, (n, 8), dev)
-    _build.require(desc_b, "desc_b", torch.int32, (m, 8), dev)
+    _build.require(desc_a, "desc_a", torch.int32, (n, 8), dev, align=16)
+    _build.require(desc_b, "desc_b", torch.int32, (m, 8), dev, align=16)
     _build.require(valid_b, "valid_b", torch.bool, (m,), dev)
     windowed = uv_pred_a is not None
     if windowed:
-        _build.require(uv_pred_a, "uv_pred_a", torch.float32, (n, 2), dev)
-        _build.require(uv_b, "uv_b", torch.float32, (m, 2), dev)
-    best = torch.empty(n, dtype=torch.int32, device=dev)
+        _build.require(uv_pred_a, "uv_pred_a", torch.float32, (n, 2), dev, align=8)
+        _build.require(uv_b, "uv_b", torch.float32, (m, 2), dev, align=8)
+    best = torch.empty(n, dtype=torch.int64, device=dev)
     dist = torch.empty((2, n), dtype=torch.int32, device=dev)
     if n == 0:
-        return best.long(), dist[0], dist[1]
+        return best, dist[0], dist[1]
     err = _build.library().hamming_match(
         desc_a.data_ptr(), desc_b.data_ptr(), valid_b.data_ptr(),
         uv_pred_a.data_ptr() if windowed else None, uv_b.data_ptr() if windowed else None,
@@ -95,7 +96,7 @@ def _hamming_match_cuda(desc_a, desc_b, valid_b, uv_pred_a, uv_b, window):
     )
     _build.check(err, _build.HAMMING)
     _build.HAMMING.launches += 1
-    return best.long(), dist[0], dist[1]
+    return best, dist[0], dist[1]
 
 
 def hamming_match(desc_a, desc_b, valid_b, uv_pred_a=None, uv_b=None, window: float = 20.0):
@@ -112,8 +113,8 @@ def hamming_match(desc_a, desc_b, valid_b, uv_pred_a=None, uv_b=None, window: fl
 def _hamming_table_cuda(a, b):
     dev = a.device
     n, m = a.shape[0], b.shape[0]
-    _build.require(a, "a", torch.int32, (n, 8), dev)
-    _build.require(b, "b", torch.int32, (m, 8), dev)
+    _build.require(a, "a", torch.int32, (n, 8), dev, align=16)
+    _build.require(b, "b", torch.int32, (m, 8), dev, align=16)
     out = torch.empty((n, m), dtype=torch.int32, device=dev)
     if n == 0 or m == 0:
         return out

@@ -19,7 +19,7 @@ bit-equal (same expression, same order); marching cubes: the same
 triangles in the same order, bit-equal; Hamming matching: best index,
 best and second distance equal (integers); MILD feature scores within
 1e-5 relative (each term bit-equal, sums in another order), candidates
-equal. The kernels are
+equal, and two calls bit-equal. The kernels are
 built without implicit FMA contraction (the TSDF transform's FMAs are
 explicit, and its plain version makes the same ones), so per-element
 arithmetic rounds as the plain versions' does and only the order of the
@@ -657,45 +657,125 @@ def _random_words(rng, shape) -> np.ndarray:
     return rng.integers(0, 2**32, shape + (8,), dtype=np.uint64).astype(np.uint32).view(np.int32)
 
 
-@pytest.mark.parametrize("n,m", [(1, 2), (63, 65), (1000, 1000), (700, 1300)])
-def test_hamming_match_kernel_vs_plain(dev, n, m):
-    """Best index, best and second distance equal, with duplicated targets
-    (ties), invalid targets, and windows, at tile edges and the path's 1000."""
+# (queries, targets, what is special): the targets are listed 1,024 at a
+# time, 4 queries a CTA, a warp a query
+_MATCH_CASES = {
+    "random_1x2": (1, 2, None), "random_63x65": (63, 65, None), "random_1000x1000": (1000, 1000, None),
+    "random_700x1300": (700, 1300, None),
+    "all_invalid": (100, 300, "all_invalid"), "one_valid": (100, 300, "one_valid"),
+    "all_ties": (64, 500, "all_ties"), "empty_window": (200, 300, "empty_window"),
+    "ragged_n": (1003, 257, None), "m2": (50, 2, None), "below_a_tile": (130, 100, None),
+    "several_tiles": (130, 3000, None), "all_valid_1000x1000": (1000, 1000, "all_valid"),
+}
+
+
+@pytest.mark.parametrize("case", list(_MATCH_CASES))
+def test_hamming_match_kernel_vs_plain(dev, case):
+    """Best index (int64), best and second distance equal, unwindowed, in a
+    20 px window and in a 1000 px one, with duplicated targets (ties) and
+    invalid targets, at the edges of the lane merge (no valid target, one,
+    all tied, empty windows), of the grid (N not a multiple of the CTA's 4
+    queries) and of the target tiles (M = 2, below one tile, across three);
+    the whole table equal too."""
+    n, m, special = _MATCH_CASES[case]
     rng = np.random.default_rng(n + m)
     b = _random_words(rng, (m,))
     b[1::3] = b[0:-1:3]
     a = b[rng.integers(0, m, n)] ^ (rng.random((n, 8)) < 0.05).astype(np.int32)
+    vb = rng.random(m) > 0.2
+    uva = rng.uniform(0, 640, (n, 2)).astype(np.float32)
+    uvb = rng.uniform(0, 640, (m, 2)).astype(np.float32)
+    if special == "all_invalid":
+        vb[:] = False
+    elif special == "one_valid":
+        vb[:] = False
+        vb[m // 2] = True
+        uva[: n // 2] = uvb[m // 2] + 5.0
+    elif special == "all_ties":
+        b[:] = b[0]
+        a[: n // 2] = b[0]
+        uvb[:] = 320.0
+        uva[: n // 2] = 330.0
+    elif special == "empty_window":
+        uvb += 2000.0
+    elif special == "all_valid":
+        vb[:] = True
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
-    vb = t(rng.random(m) > 0.2)
-    uva = t(rng.uniform(0, 640, (n, 2)).astype(np.float32))
-    uvb = t(rng.uniform(0, 640, (m, 2)).astype(np.float32))
-    for args in ((t(a), t(b), vb), (t(a), t(b), vb, uva, uvb, 20.0), (t(a), t(b), vb, uva, uvb, 1000.0)):
+    vb = t(vb)
+    for args in ((t(a), t(b), vb), (t(a), t(b), vb, t(uva), t(uvb), 20.0), (t(a), t(b), vb, t(uva), t(uvb), 1000.0)):
+        _build.reset_launch_counts()
         k = hamming.hamming_match(*args)
         p = hamming.hamming_match_reference(*args)
         torch.cuda.synchronize()
+        assert _build.HAMMING.launches == 1 and k[0].dtype == torch.int64
         for x, y in zip(k, p):
             assert torch.equal(x, y)
+        if special in ("all_invalid", "empty_window") and len(args) > 3:
+            assert bool((k[0] == 0).all() & (k[1] == 257).all() & (k[2] == 257).all())
+        if special == "one_valid":
+            assert bool((k[2] == 257).all())
     assert torch.equal(hamming.hamming_table(t(a), t(b)), hamming.hamming_table_reference(t(a), t(b)))
 
 
-def test_mild_feature_scores_kernel_vs_plain(dev):
+@pytest.mark.parametrize("case", ["g39", "g0", "g_cap", "empty_keyframe", "no_valid_query", "two_tiles"])
+def test_mild_feature_scores_kernel_vs_plain(dev, case):
     """fs within 1e-5 relative at 1000 queries x 128 keyframes x 1000
-    features, g = 39 (rows past g skipped on the device), candidates equal."""
+    features, g = 39 (rows past g written 0 on the device), g = 0, g = 128,
+    a keyframe with no valid feature and no valid query; and at 1300
+    queries x 8 keyframes x 2100 features, g = 5, where the kernel lists
+    queries and features 1,024 at a time (a second query tile ranked after
+    the first's valid queries; each sum carried from one feature tile to
+    the next), with near features in both tiles; candidates equal; two
+    calls bit-equal (each sum in one fixed order, no atomics)."""
     rng = np.random.default_rng(7)
-    q = _random_words(rng, (1000,))
-    db = _random_words(rng, (128, 1000))
-    db[:, :400] = q[None, :400] ^ (rng.random((128, 400, 8)) < 0.04).astype(np.int32)
+    n, n_cap, f = (1300, 8, 2100) if case == "two_tiles" else (1000, 128, 1000)
+    q = _random_words(rng, (n,))
+    db = _random_words(rng, (n_cap, f))
+    db[:, :400] = q[None, :400] ^ (rng.random((n_cap, 400, 8)) < 0.04).astype(np.int32)
+    if case == "two_tiles":  # the second query tile near the second feature tile
+        db[:, 1600:2000] = q[None, 900:1300] ^ (rng.random((n_cap, 400, 8)) < 0.04).astype(np.int32)
+    qv, dbv = rng.random(n) > 0.1, rng.random((n_cap, f)) > 0.2
+    gi = {"g0": 0, "g_cap": 128, "two_tiles": 5}.get(case, 39)
+    if case == "empty_keyframe":
+        dbv[11] = False
+    if case == "no_valid_query":
+        qv[:] = False
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
-    qv, dbv = t(rng.random(1000) > 0.1), t(rng.random((128, 1000)) > 0.2)
-    g = torch.tensor(39, device=dev)
+    qv, dbv = t(qv), t(dbv)
+    g = torch.tensor(gi, device=dev)
+    _build.reset_launch_counts()
     fk = mild.mild_feature_scores(t(q), qv, t(db), dbv, g)
+    assert _build.HAMMING.launches == 1
     fp = mild.mild_feature_scores_reference(t(q), qv, t(db), dbv, g)
-    assert float(fp.max()) > 0 and bool((fk[:, 39:] == 0).all())
+    assert torch.equal(mild.mild_feature_scores(t(q), qv, t(db), dbv, g), fk)
+    assert bool((fk[:, gi:] == 0).all()) and bool((fk[~qv] == 0).all())
+    if case in ("g0", "no_valid_query"):
+        assert not bool(fk.any()) and not bool(fp.any())
+    else:
+        assert float(fp.max()) > 0
+    if case == "two_tiles":  # both tiles' near features reach their queries
+        assert bool((fp[900:1300, :gi] > 0.5).any()) and bool((fp[:400, :gi] > 0.5).any())
+    if case == "empty_keyframe":
+        assert not bool(fk[:, 11].any())
     assert float((fk - fp).abs().max()) <= 1e-5 * float(fp.abs().max())
     rest = (g, g - 1, torch.tensor(-1, device=dev))
     ck, ok_k = mild.lc_candidates_device(t(q), qv, t(db), dbv, *rest)
     cp, ok_p = mild.candidates_from_scores(fp, qv, *rest)
     assert torch.equal(ck, cp) and torch.equal(ok_k, ok_p)
+
+
+def test_hamming_wrappers_reject_unaligned_descriptors(dev):
+    """The kernels read descriptors as 16-byte vectors: a view that does not
+    start on 16 bytes is refused, not read across."""
+    words = torch.zeros(65 * 8 + 1, dtype=torch.int32, device=dev)
+    a, bad = words[:64 * 8].view(64, 8), words[1:].view(65, 8)
+    vb = torch.ones(65, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        hamming.hamming_match(a, bad, vb)
+    with pytest.raises(ValueError, match="aligned"):
+        hamming.hamming_table(bad, a)
+    with pytest.raises(ValueError, match="aligned"):
+        mild.mild_feature_scores(bad[:64], vb[:64], a.view(8, 8, 8), vb[:64].view(8, 8), 8)
 
 
 def test_fused_sparse_on_the_card(dev, frames):

@@ -8,13 +8,16 @@ and backprojected points bit-equal; angle bins >= 99.5 % equal (atan2 may
 differ in its last bit, which can move an angle across a bin edge);
 descriptors bit-equal wherever the bins agree; Hamming tables, matches,
 ratio tests, windowed matches and the mutual filter equal, on descriptors
-with deliberate ties.
+with deliberate ties and on the edge cases of the kernel's lane merge (no
+valid target, one, all tied, an empty window); the plain `hamming_match`'s
+(index, best, second) equal to `lax.top_k` over the JAX package's table.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from onepiece_tpu.geometry.camera import TUM_CAMERA as JCAM
@@ -124,22 +127,74 @@ def _t(x, dtype=None):
     return torch.from_numpy(x) if dtype is None else torch.from_numpy(x).to(dtype)
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_hamming_table_and_matches_match_jax(seed):
+def _match_case(case):
+    """(a, va, b, vb, uv_pred, uv_b) for 300 queries and 250 targets: the
+    seeded descriptors with deliberate ties (an int case is the seed), or
+    one of the cases where the kernel's lane merge needs care: every target
+    invalid, exactly one valid target (ten queries near it, in its window),
+    every target a copy of one descriptor (twenty queries equal to it), and
+    windows that hold no target."""
+    seed = case if isinstance(case, int) else 2
     a, va, b, vb = _tied_descriptors(seed, 300, 250)
-    assert np.array_equal(tham.hamming_table(_t(a), _t(b)).numpy(), np.asarray(jham.hamming_table(a, b)))
-    ij, okj = jham.match_descriptors(a, va, b, vb)
-    it, okt = tham.match_descriptors(_t(a), _t(va), _t(b), _t(vb))
-    assert np.array_equal(it.numpy(), np.asarray(ij)) and np.array_equal(okt.numpy(), np.asarray(okj))
-    assert 20 < np.asarray(okj).sum() < 300
     rng = np.random.default_rng(seed + 10)
     uv_pred = rng.uniform(0, 160, (300, 2)).astype(np.float32)
     uv_b = rng.uniform(0, 160, (250, 2)).astype(np.float32)
     uv_b[1::7] = uv_b[0:-1:7]  # duplicates in the same window too
+    if case == "all_invalid":
+        vb[:] = False
+    elif case == "one_valid":
+        vb[:] = False
+        vb[137] = True
+        a[:10] = b[137]
+        a[:10, 3] ^= np.uint32(0b1011)
+        uv_pred[:10] = uv_b[137] + 3.0
+    elif case == "all_ties":
+        b[:] = b[0]
+        a[:20] = b[0]
+        uv_b[:] = uv_b[0]
+        uv_pred[:20] = uv_b[0]
+    elif case == "empty_window":
+        uv_b += 5000.0
+    return a, va, b, vb, uv_pred, uv_b
+
+
+def _jax_best_two(a, b, mask):
+    """(index, best, second) of each row of the JAX package's masked
+    Hamming table, by `lax.top_k(-d, 2)` as `match_descriptors` takes them."""
+    d = jnp.where(jnp.asarray(mask), jham.hamming_table(a, b), jham.HAMMING_MAX + 1)
+    neg, idx = jax.lax.top_k(-d, 2)
+    return np.asarray(idx[:, 0]), np.asarray(-neg[:, 0]), np.asarray(-neg[:, 1])
+
+
+@pytest.mark.parametrize("case", [0, 1, "all_invalid", "one_valid", "all_ties", "empty_window"])
+def test_hamming_table_and_matches_match_jax(case):
+    a, va, b, vb, uv_pred, uv_b = _match_case(case)
+    assert np.array_equal(tham.hamming_table(_t(a), _t(b)).numpy(), np.asarray(jham.hamming_table(a, b)))
+    # the plain version's triple, which the kernel is held to, against the JAX package's table
+    for window in (None, 20.0, 200.0):
+        mask = vb[None]
+        args = (_t(a), _t(b), _t(vb))
+        if window is not None:
+            mask = mask & (np.abs(uv_pred[:, None] - uv_b[None]) <= np.float32(window)).all(-1)
+            args += (_t(uv_pred), _t(uv_b), window)
+        for mine, ref in zip(tham.hamming_match_reference(*args), _jax_best_two(a, b, mask)):
+            assert np.array_equal(mine.numpy(), ref)
+    ij, okj = jham.match_descriptors(a, va, b, vb)
+    it, okt = tham.match_descriptors(_t(a), _t(va), _t(b), _t(vb))
+    assert np.array_equal(it.numpy(), np.asarray(ij)) and np.array_equal(okt.numpy(), np.asarray(okj))
+    n_ok = int(np.asarray(okj).sum())
+    if isinstance(case, int) or case == "empty_window":
+        assert 20 < n_ok < 300
+    elif case == "all_invalid":
+        assert n_ok == 0
+    else:  # the queries placed on the one target, or on the tied ones (best = second = 0), and any others
+        assert n_ok >= va[: {"one_valid": 10, "all_ties": 20}[case]].sum() > 0
     for window in (20.0, 200.0):
         ij, okj = jham.match_descriptors_windowed(a, va, b, vb, uv_pred, uv_b, window)
         it, okt = tham.match_descriptors_windowed(_t(a), _t(va), _t(b), _t(vb), _t(uv_pred), _t(uv_b), window)
         assert np.array_equal(it.numpy(), np.asarray(ij)) and np.array_equal(okt.numpy(), np.asarray(okj))
+        if case == "empty_window":
+            assert not np.asarray(okj).any() and not np.asarray(ij).any()
     ij, okj = jham.match_descriptors(a, va, b, vb)
     back, _ = jham.match_descriptors(b, vb, a, va)
     it, okt = tham.match_descriptors(_t(a), _t(va), _t(b), _t(vb))

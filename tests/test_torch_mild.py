@@ -6,7 +6,8 @@ Inputs: a seeded database of keyframes, each a noisy copy of one of four
 features, and queries made the same way. Tolerances: similarity scores
 within 1e-5 relative to the largest (each term is bit-equal; the sums run
 in another order); salient scores within 1e-5; candidate indices and their
-validity equal.
+validity equal. Edge cases the kernel must also meet: g = 0 (every row
+skipped) and a keyframe with no valid feature.
 """
 
 import numpy as np
@@ -69,13 +70,33 @@ def test_feature_scores_skip_rows_past_g(database):
     assert torch.equal(fs, full)
 
 
-@pytest.mark.parametrize("g,limit,exclude", [(24, 23, -1), (20, 19, 3), (13, 13, -1), (9, 8, 5), (3, 3, -1)])
+@pytest.mark.parametrize("g,limit,exclude", [(24, 23, -1), (20, 19, 3), (13, 13, -1), (9, 8, 5), (3, 3, -1),
+                                             (0, 0, -1)])
 def test_lc_candidates_device_matches_jax(database, g, limit, exclude):
     db, dbv, queries, qv = database
     for q in queries:
         cj, okj = jmild.lc_candidates_device(q, qv, db, dbv, jnp.int32(g), jnp.int32(limit), jnp.int32(exclude))
         ct, okt = tmild.lc_candidates_device(_t(q), _t(qv), _t(db), _t(dbv), torch.tensor(g),
                                              torch.tensor(limit), torch.tensor(exclude))
+        assert np.array_equal(ct.numpy(), np.asarray(cj)) and np.array_equal(okt.numpy(), np.asarray(okj))
+
+
+@pytest.mark.parametrize("g", [7, 24])
+def test_keyframe_with_no_valid_feature_matches_jax(database, g):
+    """Keyframe 5 holds no valid feature: its feature scores are 0, and the
+    similarity scores and candidates stay the JAX package's."""
+    db, dbv, queries, qv = database
+    dbv = dbv.copy()
+    dbv[5] = False
+    for q in queries:
+        sj = np.asarray(jmild._similarity_scores(q, qv, db, dbv, num_keyframes=jnp.int32(g)))
+        st = tmild._similarity_scores(_t(q), _t(qv), _t(db), _t(dbv), num_keyframes=g).numpy()
+        assert sj[5] == 0 and np.abs(st - sj).max() <= 1e-5 * np.abs(sj).max()
+        fs = tmild.mild_feature_scores(_t(q), _t(qv), _t(db), _t(dbv), torch.tensor(g))
+        assert bool((fs[:, 5] == 0).all()) and float(fs[:, :g].max()) > 0
+        cj, okj = jmild.lc_candidates_device(q, qv, db, dbv, jnp.int32(g), jnp.int32(g - 1), jnp.int32(-1))
+        ct, okt = tmild.lc_candidates_device(_t(q), _t(qv), _t(db), _t(dbv), torch.tensor(g),
+                                             torch.tensor(g - 1), torch.tensor(-1))
         assert np.array_equal(ct.numpy(), np.asarray(cj)) and np.array_equal(okt.numpy(), np.asarray(okj))
 
 
