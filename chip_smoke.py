@@ -69,8 +69,28 @@ Phases, in order; any failure exits non-zero before the final `ok` line:
      dedup on the card bit-equal to numpy's, |scene SDF| median at the
      vertices < voxel / 2, the volume mapped to the scene by the first
      ground-truth pose, as in phase 8)
+ 10. BAFusion: the BA Schur kernel (`csrc/ba_schur.cu`) against its plain
+     version on the inputs of `FusedBASlam`'s own BA steps, recorded in warm
+     runs (the orbit's first step, the loop's last chunk's first step): S,
+     rhs_c, b_p, V^-1 of the observed points and the back-substitution
+     within KERNEL2_TOL of the largest plain entry, V^-1 of the padding
+     points equal, two calls bit-equal; the same at the dampings LM
+     reaches after rejections (BA_DAMPINGS), where the damping must move
+     the plain S, V^-1 and back-substitution by 10x that tolerance; each
+     timed (one LM step's three kernels from the profiler, failing if it
+     saw another kernel) with its bound over the capacities and over the
+     live frames and points. Then, launches and host syncs counted, `FusedBASlam` (defaults)
+     on the 16-frame orbit in one chunk (ATE <= 15 mm and <= 1.5 x the
+     FusedFBASlam ATE of phase 9 + 0.1 mm, finite BA mse, no overflow, host
+     syncs and reads equal to FusedFBASlam's, two runs bit-equal; ms per
+     frame over 5 runs) and on the 100-frame loop in chunks of 25 (ATE <= 30
+     mm, a loop-closure edge, world points; ms per frame over 2 runs), ms a
+     chunk of the track linker and the LM loop, and the corrupted orbit
+     (`corrupt_sequence`: finite poses, >= 3 keyframes; its ATE printed
+     beside BENCH_r05's for other chips)
 Prints one JSON line of per-kernel results (launches: the counted runs of
-phases 5 (gray and rgb), 7 and 8 together, and for hamming phase 9's; ms: the kernels' device time per
+phases 5 (gray and rgb), 7 and 8 together, for hamming phase 9's, for
+ba_schur phase 10's; ms: the kernels' device time per
 wrapper call from the profiler (from CUDA events around each single call
 where the profiler records none; a note on stderr says so); event_ms and plain_ms: CUDA events around
 back-to-back calls of the wrapper and of the plain version; the TSDF entry
@@ -80,7 +100,9 @@ could take for the same work, the larger of bytes over 3.35 TB/s and
 float32 operations over 67 TFLOP/s, the published H100 SXM peaks at 700 W
 (hamming: __popc counts over PEAK_POPC_PER_S);
 roofline_share = bound_ms / ms; the hamming entry adds the windowed, the
-all-valid and the MILD times, bounds and shares, and the launch floor), the card line, then
+all-valid and the MILD times, bounds and shares, and the launch floor; the
+ba_schur entry is one LM step's kernels at the orbit's BA call and adds the
+loop's (loop_*), ms/frame and ms a chunk of the linker and the LM loop), the card line, then
 {"ok": true, "device": {...}} as the last line.
 """
 
@@ -141,6 +163,21 @@ FBA_STRIDE = 8
 MILD_G = 39  # keyframes in the loop's database when the MILD kernel is checked
 MILD_DB_ROWS = 128  # the loop's database capacity after its doublings
 ALL_VALID_SEED = 0  # the all-valid 1000 x 1000 hamming_match pair of random descriptors
+BA_ITERS = 8  # FusedBASlam's LM iterations a chunk (its default)
+BA_LAM0 = 3e-5  # FusedBASlam's first LM damping (its default)
+# dampings the LM loop reaches after rejections (x2 each): the most
+# FusedBASlam's 8 steps reach, and one within the host loop's 20
+BA_DAMPINGS = (BA_LAM0 * 2**BA_ITERS, 1.0)
+BA_DAMPING_MARGIN = 10  # the damping must move the plain system by 10x the kernel's tolerance
+MAX_BA_WARM_RATIO = 1.5  # BA must not degrade the pose-graph warm start (tests/test_fused_ba.py:57): x1.5
+BA_WARM_SLACK_M = 1e-4  # + 0.1 mm
+# FusedBASlam's ATE on the corrupted 16-frame orbit as BENCH_r05 reports it for other chips
+BENCH_NOISY_BA_ATE_M = {"JAX on its TPU (BENCH_r05)": 0.01785, "reference CPU build (BENCH_r05)": 0.02722}
+# float32 operations of the BA Schur work, counted from csrc/ba_schur.cu (RGB-D model)
+BA_OPS_PER_PAIR = 216  # one 6x6 block of 3-term dot products (3 mul, 3 add each)
+BA_OPS_PER_OBS = 717  # residual and Jacobians 39, W/U/g/V/e and Y 561, U_f and rhs_c sums 78, W^T dc 39
+BA_OPS_PER_POINT = 80  # damping 17, cofactor inverse 41, dp 21 and its sign
+BA_OPS_PER_FRAME = 66  # U_f damping 30, added into S 36
 
 
 def bound(n_bytes: float, n_ops: float, peak_ops_per_s: float = PEAK_F32_PER_S) -> dict:
@@ -674,8 +711,9 @@ def sparse_phase(cam, dev, scene, card, poses, grays, depths) -> dict:
     with SyncCounter() as sc:
         slam, _ = run_orbit()
     launches.append(counted({**zero, "hamming": _build.HAMMING.launches}, "sparse orbit"))
-    syncs = sc.count
-    ate = traj.ate_rmse(slam.trajectory(), poses)
+    syncs = orbit_syncs = sc.count
+    ate = orbit_ate = traj.ate_rmse(slam.trajectory(), poses)
+    orbit_reads = slam.host_reads
     if not (launches[-1]["hamming"] >= 2 * (len(grays) - 1) and np.isfinite(slam.trajectory()).all()
             and ate <= MAX_SPARSE_ATE_M and slam.edge_overflow == 0):
         raise AssertionError(f"FusedFBASlam orbit: ATE {ate} m (<= {MAX_SPARSE_ATE_M}), overflow "
@@ -790,6 +828,279 @@ def sparse_phase(cam, dev, scene, card, poses, grays, depths) -> dict:
           f"{len(faces)} faces (the dedup on the card bit-equal to numpy's) in {mesh_ms:.1f} ms; launches "
           f"{mesh_launches}; |scene sdf| at the vertices median {med * 1e3:.3f} mm, p90 {p90 * 1e3:.3f} mm",
           flush=True)
+    return dict(kernel=kernel, launches=launches, loop=(loop_gt, l_grays, l_depths),
+                orbit=dict(ate=orbit_ate, syncs=orbit_syncs, host_reads=orbit_reads))
+
+
+def ba_bytes_ops(args, lists, live: bool = False) -> tuple[int, int, int]:
+    """What one LM step's Schur work (`reduced_system` and `back_substitute`)
+    must move and compute on these inputs: (bytes, float32 operations,
+    observation pairs). Over the capacities (the kernels write S, V^-1, b_p
+    and dp at their full size) or, with `live`, over the frames and points
+    that hold an observation. Read once: each valid observation's frame and point
+    indices (16 B), its measurement (12 B camera point or 8 B pixel) and its
+    two list entries (16 B); each pose (64 B), list offset (8 B) and camera
+    step (24 B) of a frame; each point (12 B) and its offset (8 B).
+    Written once: S (36 F^2 floats), rhs_c (24 B a frame), V^-1, b_p and dp
+    (60 B a point). Operations, counted from the kernels' code: 216 per
+    pair of observations of one point (a 6x6 block of 3-term dot products),
+    BA_OPS_PER_OBS per observation, BA_OPS_PER_POINT per point,
+    BA_OPS_PER_FRAME per frame."""
+    poses, points, frame, point, uv, valid, lam, intr, pc = args
+    n_f, n_p = poses.shape[0], points.shape[0]
+    if live:
+        n_f, n_p = int((lists.frame_ptr.diff() > 0).sum()), int((lists.point_ptr.diff() > 0).sum())
+    n_obs = int(lists.frame_ptr[-1])
+    n_pairs = int((lists.point_ptr.diff() ** 2).sum())
+    meas = 12 if pc is not None else 8
+    n_bytes = (n_obs * (16 + meas + 16) + n_f * (64 + 8 + 24) + n_p * (12 + 8) + 4
+               + 36 * n_f * n_f * 4 + 24 * n_f + 60 * n_p)
+    n_ops = BA_OPS_PER_PAIR * n_pairs + BA_OPS_PER_OBS * n_obs + BA_OPS_PER_POINT * n_p + BA_OPS_PER_FRAME * n_f
+    return n_bytes, n_ops, n_pairs
+
+
+def ba_phase(cam, dev, card, poses, grays, depths, sparse: dict) -> dict:
+    """Phase 10: the BA Schur kernel against its plain version on the inputs
+    of FusedBASlam's own BA calls, timed; FusedBASlam on the orbit and on
+    the 100-frame loop with counted launches and host syncs; the corrupted
+    orbit."""
+    from onepiece_tpu_torch import _build
+    from onepiece_tpu_torch.io import trajectory as traj
+    from onepiece_tpu_torch.ops import ba_schur
+    from onepiece_tpu_torch.systems import fused_ba
+    from onepiece_tpu_torch.utils import synthetic
+
+    zero = {k.name: 0 for k in _build.KERNELS}
+    loop_gt, l_grays, l_depths = sparse["loop"]
+
+    def run(g, d, chunk):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        s = fused_ba.FusedBASlam(cam, device=dev)
+        for i in range(0, len(g), chunk):
+            s.process_chunk(g[i : i + chunk], d[i : i + chunk])
+        torch.cuda.synchronize()
+        return s, (time.perf_counter() - t) * 1e3 / len(g)
+
+    # -- (a) warm runs, recording the inputs of every BA step's reduced_system --
+    calls = []
+
+    def recording(fn):
+        def wrapped(*args, **kwargs):  # copies: the linker writes the track buffers in place
+            calls.append(tuple(a.clone() if torch.is_tensor(a) else a for a in args[:9]))
+            return fn(*args, **kwargs)
+        return wrapped
+
+    with patched(ba_schur, "reduced_system", recording):
+        run(grays, depths, len(grays))
+        orbit_call = calls[0]
+        lam_reached = {"orbit": max(float(a[6]) for a in calls)}
+        calls.clear()
+        run(l_grays, l_depths, LOOP_CHUNK)
+        loop_call = calls[-BA_ITERS]  # the last chunk's first step
+        lam_reached["loop"] = max(float(a[6]) for a in calls)
+        del calls[:]
+
+    # -- (b) the kernel against its plain version on those inputs, timed --
+    res = {}
+    for shape, args in (("orbit", orbit_call), ("loop", loop_call)):
+        # poses, points, frame, point, uv, valid, lam, intrinsics, pc_obs
+        frame, point = args[2], args[3]
+        lists = ba_schur.build_lists(frame, point, args[5], args[0].shape[0], args[1].shape[0])
+        kw = dict(lists=lists)
+        k = ba_schur.reduced_system(*args, **kw)
+        k2 = ba_schur.reduced_system(*args, **kw)
+        p = ba_schur.reduced_system_reference(*args)
+        dc = torch.from_numpy(np.random.default_rng(0).normal(size=k.rhs_c.shape[0]).astype(np.float32)
+                              * 1e-3).to(dev)
+        dk = ba_schur.back_substitute(k, dc, frame, point, lists)
+        dk2 = ba_schur.back_substitute(k2, dc, frame, point, lists)
+        dp = ba_schur.back_substitute_reference(p, dc, frame, point)
+        torch.cuda.synchronize()
+        observed = lists.point_ptr.diff() > 0
+        if not bool(observed.any()):
+            raise AssertionError(f"ba_schur at the {shape} call: no valid observation recorded")
+        pairs = dict(S=(k.S, p.S), rhs_c=(k.rhs_c, p.rhs_c), b_p=(k.b_p, p.b_p),
+                     Vinv=(k.Vinv[observed], p.Vinv[observed]), dp=(dk, dp))
+        errs = {n: rel_err(a, b) for n, (a, b) in pairs.items()}
+        abs_err = max(float((a - b).abs().max()) for a, b in pairs.values())
+        same = all(torch.equal(x, y) for x, y in zip((*k[:4], dk), (*k2[:4], dk2)))
+        if not (max(errs.values()) <= KERNEL2_TOL and torch.equal(k.Vinv[~observed], p.Vinv[~observed]) and same
+                and bool(observed.any())):
+            raise AssertionError(f"ba_schur at the {shape} call: rel errs {errs} (<= {KERNEL2_TOL}), padding "
+                                 f"V^-1 equal {torch.equal(k.Vinv[~observed], p.Vinv[~observed])}, two calls "
+                                 f"bit-equal {same}")
+        # the damping: at dampings LM reaches after rejections the kernel stays
+        # within the tolerance, and the damping moves the plain system by far
+        # more than it, so a kernel that dropped or misplaced lam would fail
+        def at(lam):
+            return (*args[:6], torch.tensor(lam, dtype=torch.float32, device=dev), *args[7:])
+
+        p0 = ba_schur.reduced_system_reference(*at(0.0))
+        dp0 = ba_schur.back_substitute_reference(p0, dc, frame, point)
+        damping = {}
+        for lam in BA_DAMPINGS:
+            kl = ba_schur.reduced_system(*at(lam), **kw)
+            pl = ba_schur.reduced_system_reference(*at(lam))
+            dkl = ba_schur.back_substitute(kl, dc, frame, point, lists)
+            dpl = ba_schur.back_substitute_reference(pl, dc, frame, point)
+            err = {n: rel_err(a, b) for n, (a, b) in dict(
+                S=(kl.S, pl.S), rhs_c=(kl.rhs_c, pl.rhs_c), Vinv=(kl.Vinv[observed], pl.Vinv[observed]),
+                dp=(dkl, dpl)).items()}
+            moved = {n: rel_err(a, b) for n, (a, b) in dict(
+                S=(pl.S, p0.S), rhs_c=(pl.rhs_c, p0.rhs_c), Vinv=(pl.Vinv[observed], p0.Vinv[observed]),
+                dp=(dpl, dp0)).items()}
+            damping[lam] = (err, moved)
+            if not (max(err.values()) <= KERNEL2_TOL
+                    and min(moved[n] for n in ("S", "Vinv", "dp")) >= BA_DAMPING_MARGIN * KERNEL2_TOL):
+                raise AssertionError(f"ba_schur at the {shape} call, lam {lam}: rel errs {err} (<= {KERNEL2_TOL}); "
+                                     f"the damping moves the plain system by {moved} (S, Vinv, dp >= "
+                                     f"{BA_DAMPING_MARGIN * KERNEL2_TOL})")
+        print(f"ba_schur at the {shape}'s BA call, damped as LM damps after rejections (its steps reached lam "
+              f"{lam_reached[shape]:.4g}): " + "; ".join(
+                  f"lam {lam:.4g}: rel errs {', '.join(f'{n} {e:.3g}' for n, e in err.items())}, the damping "
+                  f"moves the plain system by {', '.join(f'{n} {e:.3g}' for n, e in moved.items())}"
+                  for lam, (err, moved) in damping.items()), flush=True)
+        t_red = device_times(lambda: ba_schur.reduced_system(*args, **kw), ("ba_points_kernel", "ba_frames_kernel"))
+        t_back = device_times(lambda: ba_schur.back_substitute(k, dc, frame, point, lists),
+                              ("ba_back_substitute_kernel",))
+        for what, t in (("reduced_system", t_red), ("back_substitute", t_back)):
+            if t["other"] is None:
+                print(f"note: ba_schur {what} at the {shape} call: the profiler recorded no full session, kernels "
+                      f"a call not checked", file=sys.stderr, flush=True)
+            elif t["other"] != 0:
+                raise AssertionError(f"ba_schur {what}: {t['other']} other kernels a call (its own kernels only)")
+        ms = (sum(t_red["ms"].values()) if t_red["ms"] else device_ms(
+            lambda: ba_schur.reduced_system(*args, **kw), ("ba_points_kernel", "ba_frames_kernel"))) + \
+            (sum(t_back["ms"].values()) if t_back["ms"] else device_ms(
+                lambda: ba_schur.back_substitute(k, dc, frame, point, lists), ("ba_back_substitute_kernel",)))
+        event_ms = cuda_ms(lambda: ba_schur.back_substitute(ba_schur.reduced_system(*args, **kw), dc, frame,
+                                                               point, lists))
+        plain_ms = cuda_ms(lambda: ba_schur.back_substitute_reference(
+            ba_schur.reduced_system_reference(*args), dc, frame, point), reps=5)
+        n_bytes, n_ops, n_pairs = ba_bytes_ops(args, lists)
+        b = bound(n_bytes, n_ops)
+        live = bound(*ba_bytes_ops(args, lists, live=True)[:2])
+        res[shape] = dict(ms=ms, event_ms=event_ms, plain_ms=plain_ms, max_abs_err=abs_err,
+                          max_rel_err=max(errs.values()), live_bound_ms=live["bound_ms"], **b)
+        print(f"ba_schur at the {shape}'s BA call: F {args[0].shape[0]}, P {args[1].shape[0]}, O "
+              f"{args[2].shape[0]} ({int(lists.frame_ptr[-1])} valid, {n_pairs} pairs, {int(observed.sum())} "
+              f"points observed): rel errs {', '.join(f'{n} {e:.3g}' for n, e in errs.items())} (<= "
+              f"{KERNEL2_TOL}), padding V^-1 equal, two calls bit-equal; device ms a step {ms:.4f} (points "
+              f"{t_red['ms'] and round(t_red['ms']['ba_points_kernel'], 4)}, frames "
+              f"{t_red['ms'] and round(t_red['ms']['ba_frames_kernel'], 4)}, back-substitution "
+              f"{t_back['ms'] and round(t_back['ms']['ba_back_substitute_kernel'], 4)}; 0 other kernels), "
+              f"{event_ms:.4f} by events, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.5f} ms "
+              f"({b['bound_by']}: {n_ops} operations, {n_bytes} B), roofline share {b['bound_ms'] / ms:.4f}; over "
+              f"the live frames and points only: bound {live['bound_ms']:.5f} ms ({live['bound_by']}), share "
+              f"{live['bound_ms'] / ms:.4f}", flush=True)
+    del orbit_call, loop_call
+
+    # -- (c) FusedBASlam on the orbit, one chunk: launches, syncs, ATE, repeatability --
+    launches = []
+    _build.reset_launch_counts()
+    with SyncCounter() as sc:
+        slam, _ = run(grays, depths, len(grays))
+    launches.append(counted({**zero, "hamming": _build.HAMMING.launches, "ba_schur": 2 * BA_ITERS}, "BA orbit"))
+    syncs = sc.count
+    est = slam.trajectory()
+    ate = traj.ate_rmse(est, poses)
+    fba = sparse["orbit"]
+    limit = min(MAX_SPARSE_ATE_M, MAX_BA_WARM_RATIO * fba["ate"] + BA_WARM_SLACK_M)
+    if not (launches[-1]["hamming"] > 0 and np.isfinite(est).all() and ate <= limit
+            and np.isfinite(slam.ba_mse) and slam.pt_overflow == 0 and slam.obs_overflow == 0
+            and slam.edge_overflow == 0 and syncs == fba["syncs"] and slam.host_reads == fba["host_reads"]):
+        raise AssertionError(f"FusedBASlam orbit: ATE {ate} m (<= {limit}: FusedFBASlam's {fba['ate']}), BA mse "
+                             f"{slam.ba_mse}, overflow points {slam.pt_overflow} observations {slam.obs_overflow} "
+                             f"edges {slam.edge_overflow}, host syncs {syncs} (FusedFBASlam {fba['syncs']}), reads "
+                             f"{slam.host_reads} ({fba['host_reads']}), launches {launches[-1]}")
+    timed = [run(grays, depths, len(grays)) for _ in range(SPARSE_TIMED_RUNS)]
+    if not np.array_equal(timed[0][0].trajectory(), est):
+        raise AssertionError("FusedBASlam orbit: two runs gave different trajectories")
+    times = [t for _, t in timed]
+    del timed
+    stage = {}
+    stage_calls = {}
+
+    def timing(name):
+        def wrap(fn):
+            def wrapped(*args, **kwargs):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                stage[name] = stage.get(name, 0.0) + (time.perf_counter() - t) * 1e3
+                stage_calls[name] = stage_calls.get(name, 0) + 1
+                return out
+            return wrapped
+        return wrap
+
+    def staged(g, d, chunk):
+        stage.clear()
+        stage_calls.clear()
+        with patched(fused_ba, "link_edges", timing("linker")), \
+                patched(fused_ba.bundle, "optimize_device", timing("LM loop")):
+            run(g, d, chunk)
+        return {k: v / stage_calls[k] for k, v in stage.items()}
+
+    orbit_stage = staged(grays, depths, len(grays))
+    print(f"FusedBASlam 640x480 x {len(grays)} frames of the orbit, one chunk: ATE {ate * 1e3:.4f} mm "
+          f"(FusedFBASlam {fba['ate'] * 1e3:.4f} mm; bound {limit * 1e3:.4f} mm), {slam.num_kf} keyframes, "
+          f"{slam.n_pts} world points, {slam.n_obs} observations, BA mse {slam.ba_mse:.4g}, overflow points "
+          f"{slam.pt_overflow} observations {slam.obs_overflow} edges {slam.edge_overflow}; launches "
+          f"{launches[-1]}; host syncs {syncs} (FusedFBASlam {fba['syncs']}; {slam.host_reads} of them the "
+          f"slice's own reads), two runs bit-equal; ms/frame over {SPARSE_TIMED_RUNS} runs after a warm run: "
+          f"median {np.median(times):.3f} (runs {[round(t, 3) for t in times]}); ms a chunk: linker "
+          f"{orbit_stage['linker']:.3f}, LM loop {orbit_stage['LM loop']:.3f} on {card}", flush=True)
+    orbit_ms = float(np.median(times))
+
+    # -- (d) the 100-frame loop in chunks of 25 --
+    n_chunks = -(-LOOP_FRAMES // LOOP_CHUNK)
+    _build.reset_launch_counts()
+    with SyncCounter() as sc:
+        loop, _ = run(l_grays, l_depths, LOOP_CHUNK)
+    launches.append(counted({**zero, "hamming": _build.HAMMING.launches, "ba_schur": 2 * BA_ITERS * n_chunks},
+                            "BA loop"))
+    syncs = sc.count
+    est = loop.trajectory()
+    ate = traj.ate_rmse(est, loop_gt)
+    if not (np.isfinite(est).all() and ate <= MAX_LOOP_ATE_M and loop.lc_edges_total >= 1 and loop.n_pts > 0
+            and launches[-1]["hamming"] > 0):
+        raise AssertionError(f"FusedBASlam loop: ATE {ate} m (<= {MAX_LOOP_ATE_M}), LC edges "
+                             f"{loop.lc_edges_total}, world points {loop.n_pts}")
+    times = [run(l_grays, l_depths, LOOP_CHUNK)[1] for _ in range(LOOP_TIMED_RUNS)]
+    loop_stage = staged(l_grays, l_depths, LOOP_CHUNK)
+    print(f"FusedBASlam 640x480 x {LOOP_FRAMES} frames of loop_trajectory in chunks of {LOOP_CHUNK}: ATE "
+          f"{ate * 1e3:.4f} mm, {loop.num_kf} keyframes, {loop.num_edges} edges ({loop.lc_edges_total} LC), "
+          f"{loop.n_pts} world points, {loop.n_obs} observations (capacities {loop.pt_capacity} / "
+          f"{loop.obs_capacity}, keyframes {loop.kf_capacity}), BA mse {loop.ba_mse:.4g}, overflow points "
+          f"{loop.pt_overflow} observations {loop.obs_overflow} edges {loop.edge_overflow}; launches "
+          f"{launches[-1]}; host syncs {syncs} ({syncs / LOOP_FRAMES:.2f} per frame; {loop.host_reads} the "
+          f"slice's own reads); ms/frame over {LOOP_TIMED_RUNS} runs after a warm run: median "
+          f"{np.median(times):.3f} (runs {[round(t, 3) for t in times]}); ms a chunk: linker "
+          f"{loop_stage['linker']:.3f}, LM loop {loop_stage['LM loop']:.3f} on {card}", flush=True)
+
+    # -- (e) the corrupted orbit (the sensor model bench.py applies) --
+    g_n, d_n = synthetic.corrupt_sequence(grays.cpu().numpy(), depths.cpu().numpy())
+    noisy, _ = run(torch.from_numpy(g_n).to(dev), torch.from_numpy(d_n).to(dev), len(grays))
+    est = noisy.trajectory()
+    if not (np.isfinite(est).all() and noisy.num_kf >= 3):
+        raise AssertionError(f"FusedBASlam on the corrupted orbit: {noisy.num_kf} keyframes, finite "
+                             f"{np.isfinite(est).all()}")
+    print(f"FusedBASlam on the corrupted orbit (corrupt_sequence: depth noise, holes, gray noise, quantised): ATE "
+          f"{traj.ate_rmse(est, poses) * 1e3:.4f} mm, {noisy.num_kf} keyframes (beside "
+          f"{', '.join(f'{k} {v * 1e3:.2f} mm' for k, v in BENCH_NOISY_BA_ATE_M.items())}, other chips)",
+          flush=True)
+
+    o, lo = res["orbit"], res["loop"]
+    kernel = dict(**o, loop_ms=lo["ms"], loop_event_ms=lo["event_ms"], loop_plain_ms=lo["plain_ms"],
+                  loop_bound_ms=lo["bound_ms"], loop_share=lo["bound_ms"] / lo["ms"],
+                  loop_live_bound_ms=lo["live_bound_ms"],
+                  loop_max_abs_err=lo["max_abs_err"], loop_max_rel_err=lo["max_rel_err"], orbit_ms_per_frame=orbit_ms,
+                  linker_ms_per_chunk=dict(orbit=orbit_stage["linker"], loop=loop_stage["linker"]),
+                  lm_loop_ms_per_chunk=dict(orbit=orbit_stage["LM loop"], loop=loop_stage["LM loop"]))
+    kernel.update(max_abs_err=max(o["max_abs_err"], lo["max_abs_err"]),
+                  max_rel_err=max(o["max_rel_err"], lo["max_rel_err"]))
     return dict(kernel=kernel, launches=launches)
 
 
@@ -982,7 +1293,7 @@ def main() -> int:
         slam, est, _ = run(forbid_syncs=True, colour=colour)
         launches = {k.name: k.launches for k in _build.KERNELS}
         expect = {"tsdf_integrate": N_FRAMES, "dense_normal_eq": sum(slam.iters) * (N_FRAMES - 1), "nn1": 0,
-                  "marching_cubes": 0, "hamming": 0}
+                  "marching_cubes": 0, "hamming": 0, "ba_schur": 0}
         if launches != expect:
             raise AssertionError(f"{form} slice: kernel launches on the main path {launches}, expected {expect}")
         slice_launches[form] = launches
@@ -1080,7 +1391,7 @@ def main() -> int:
     slam_launches = {k.name: k.launches for k in _build.KERNELS}
     n_icp = len(icp_syncs)
     expect = {"tsdf_integrate": 0, "dense_normal_eq": sum(dense.DEFAULT_ITERS) * (SLAM_FRAMES - 1),
-              "nn1": (icp.DEFAULT_ITERS + 1) * n_icp, "marching_cubes": 0, "hamming": 0}
+              "nn1": (icp.DEFAULT_ITERS + 1) * n_icp, "marching_cubes": 0, "hamming": 0, "ba_schur": 0}
     if slam_launches != expect:
         raise AssertionError(f"DenseSlam kernel launches {slam_launches}, expected {expect} ({n_icp} ICP calls)")
     est = slam.trajectory()
@@ -1115,12 +1426,17 @@ def main() -> int:
     phase9 = sparse_phase(cam, dev, scene, card, poses, grays, depths)
     results["hamming"] = phase9["kernel"]
 
-    # the hamming launches are phase 9's counted runs; the other four keep
-    # the counts of phases 5, 7 and 8. No single PyTorch call computes any
-    # of the five functions.
+    # ---- 10. BAFusion: the BA Schur kernel, FusedBASlam ----------------------
+    phase10 = ba_phase(cam, dev, card, poses, grays, depths, phase9)
+    results["ba_schur"] = phase10["kernel"]
+
+    # the hamming launches are phase 9's counted runs, the ba_schur launches
+    # phase 10's; the other four keep the counts of phases 5, 7 and 8. No
+    # single PyTorch call computes any of the six functions.
+    counted_in = {_build.HAMMING.name: phase9["launches"], _build.BA_SCHUR.name: phase10["launches"]}
     kernels = [
         dict(name=k.name, route="cuda", source=k.source, replaces=k.replaces,
-             launches=sum(n[k.name] for n in (phase9["launches"] if k is _build.HAMMING else path_launches)),
+             launches=sum(n[k.name] for n in counted_in.get(k.name, path_launches)),
              **results[k.name],
              roofline_share=results[k.name]["bound_ms"] / results[k.name]["ms"], library_ms=None)
         for k in _build.KERNELS

@@ -79,7 +79,12 @@ HAMMING = Kernel(
     "onepiece_tpu/ops/hamming.py:41 hamming_table (XLA, not Pallas) and its consumers :52, :78, "
     "lcdetection/mild.py:55",
 )
-KERNELS = (TSDF_INTEGRATE, DENSE_NORMAL_EQ, NN1, MARCHING_CUBES, HAMMING)
+BA_SCHUR = Kernel(
+    "ba_schur",
+    "onepiece_tpu_torch/csrc/ba_schur.cu",
+    "onepiece_tpu/optimization/bundle.py:232",
+)
+KERNELS = (TSDF_INTEGRATE, DENSE_NORMAL_EQ, NN1, MARCHING_CUBES, HAMMING, BA_SCHUR)
 
 
 def reset_launch_counts() -> None:
@@ -172,6 +177,14 @@ _SIGNATURES = {
     "hamming_table": [_VP, _VP, _I, _I, _VP, _VP],
     # q_desc, q_valid, db, db_valid, g (device int64), lut (64,), N, N_CAP, F, fs, stream
     "mild_feature_scores": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP, _VP],
+    # poses, points, frame, point, uv or pc_obs, model (0 2-D, 1 RGB-D), lam (device), fx, fy, cx, cy,
+    # frame_ptr, frame_obs, point_ptr, point_obs, F, P, O, S, rhs, Vinv, b_p, per-observation scratch, stream
+    "ba_schur": [
+        _VP, _VP, _VP, _VP, _VP, _I, _VP, _F, _F, _F, _F, _VP, _VP, _VP, _VP, _I, _I, _I, _VP, _VP, _VP, _VP, _VP,
+        _VP,
+    ],
+    # frame, point_ptr, point_obs, per-observation scratch, Vinv, b_p, dc, P, dp, stream
+    "ba_back_substitute": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP, _VP],
 }
 
 _lib: ctypes.CDLL | None = None

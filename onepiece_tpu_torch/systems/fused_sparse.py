@@ -452,8 +452,19 @@ class FusedFBASlam:
         # 6. re-anchor the carried pose to the optimised keyframe poses
         self._state = st._replace(kf_pose=kf_pose, last_T=_row(kf_pose, st.last_anchor) @ st.last_Trel)
         self.lc_pairs = n_pairs
+        # each promotion appends at most one edge, each tracked pair one: a
+        # bound on the edges this chunk appended, known on the host
+        self._edge_bound = len(promoted) + n_pairs
         return SparseChunkOut(T_rel, anchor, ok, is_kf, retro, reloc, rmse, disp, kf_pose, st.num_kf,
                               st.edges.num, st.edges.overflow, lc_added)
+
+    def _after_chunk(self, out: SparseChunkOut) -> tuple[SparseChunkOut, tuple]:
+        """Device work after the front end, before the chunk's one fetch: the
+        outputs, and extra device tensors to fetch with them (none here)."""
+        return out, ()
+
+    def _absorb(self, extra: list[np.ndarray], info: dict) -> None:
+        """Take the fetched extra tensors into the host state and `info`."""
 
     # -- main entry ------------------------------------------------------------
 
@@ -468,9 +479,10 @@ class FusedFBASlam:
         self._maybe_grow(max(8, 1 << (k - 1).bit_length()))
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(self._rng.integers(0, 2**31)))
-        out = self._chunk(grays, depths, gen)
-        h = SparseChunkOut(*fetch(*out))  # the one fetch of the chunk
+        out, extra = self._after_chunk(self._chunk(grays, depths, gen))
+        flat = fetch(*out, *extra)  # the one fetch of the chunk
         self.host_reads += 1
+        h = SparseChunkOut(*flat[: len(out)])
         self.frame_count += k
         self.num_kf = int(h.num_kf)
         self.num_edges = int(h.num_edges)
@@ -480,11 +492,13 @@ class FusedFBASlam:
         for i in range(k):
             self._anchors.append(int(h.anchor[i]))
             self._Trels.append(h.T_rel[i].astype(np.float32))
-        return {
+        info = {
             "frames": self.frame_count, "keyframes": self.num_kf, "edges": self.num_edges,
             "lc_pairs": self.lc_pairs, "lc_edges": int(h.lc_edges),
             "relocs": int(np.sum(h.reloc)), "retro": int(np.sum(h.retro)),
         }
+        self._absorb(flat[len(out):], info)
+        return info
 
     def trajectory(self) -> np.ndarray:
         """Per-frame world poses, re-anchored to the latest keyframe poses."""

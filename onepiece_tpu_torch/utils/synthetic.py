@@ -1,6 +1,8 @@
 """Synthetic RGB-D frames by SDF sphere tracing, with exact ground-truth poses.
 
-Port of `onepiece_tpu/utils/synthetic.py` (scene, renderer, trajectories):
+Port of `onepiece_tpu/utils/synthetic.py` (scene, renderer, trajectories,
+and the numpy sensor-noise model `corrupt_rgbd` / `quantize_rgbd` /
+`corrupt_sequence`):
 a room of spheres, boxes and planes is sphere-traced from a known camera
 trajectory, giving z-depth, a shaded textured gray image and exact poses.
 The renderer runs on whatever device its pose tensor lives on.
@@ -149,3 +151,79 @@ def loop_trajectory(num_frames: int, radius: float = 0.35) -> np.ndarray:
             0.08 * np.sin(2 * ang), 0.45 * np.sin(ang), 0.04 * np.sin(3 * ang),
         ], np.float32))
     return _poses_from_twists(xis)
+
+
+# The sensor model (numpy only): Kinect-style axial depth noise
+# sigma(z) = a + b (z - 0.4)^2 (Khoshelham & Elberink 2012's quadratic fit),
+# dropout holes (IR shadows, specular returns) and sensor gray noise, with
+# an optional textureless (contrast-collapsed) segment that starves the
+# sparse front end of corners. The same draws as the JAX package's, bit for
+# bit.
+DEPTH_NOISE_A = 0.0012  # m
+DEPTH_NOISE_B = 0.0019  # m^-1
+DEFAULT_HOLES = 10
+GRAY_SIGMA = 0.01
+
+
+def corrupt_rgbd(
+    rng: np.random.Generator,
+    gray: np.ndarray,
+    depth: np.ndarray,
+    holes: int = DEFAULT_HOLES,
+    hole_radius: tuple[int, int] = (4, 24),
+    gray_sigma: float = GRAY_SIGMA,
+    contrast: float = 1.0,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Apply the sensor model to one clean (gray, depth) pair (host-side;
+    corruption is data preparation, not a compute path). `contrast` < 1
+    collapses texture around the mean (textureless-wall surrogate)."""
+    g = np.asarray(gray, np.float32)
+    z = np.asarray(depth, np.float32)
+    sig = DEPTH_NOISE_A + DEPTH_NOISE_B * np.square(np.maximum(z - 0.4, 0.0))
+    zn = np.where(z > 0, z + rng.normal(size=z.shape).astype(np.float32) * sig, 0.0)
+    h, w = z.shape
+    yy, xx = np.mgrid[0:h, 0:w]
+    for _ in range(holes):
+        cy_, cx_ = int(rng.integers(0, h)), int(rng.integers(0, w))
+        ry_ = int(rng.integers(hole_radius[0], hole_radius[1]))
+        rx_ = int(rng.integers(hole_radius[0], hole_radius[1]))
+        mask = ((yy - cy_) / ry_) ** 2 + ((xx - cx_) / rx_) ** 2 <= 1.0
+        zn = np.where(mask, 0.0, zn)
+    if contrast != 1.0:
+        g = np.float32(g.mean()) + contrast * (g - np.float32(g.mean()))
+    gn = np.clip(g + rng.normal(size=g.shape).astype(np.float32) * gray_sigma, 0.0, 1.0)
+    return gn.astype(np.float32), np.maximum(zn, 0.0).astype(np.float32)
+
+
+def quantize_rgbd(gray, depth, depth_scale: float = 5000.0):
+    """Round-trip through the on-disk TUM encoding (uint8 gray, uint16
+    depth) so in-memory benchmarks consume bit-identical data to what the
+    reference binaries read from PNG."""
+    g8 = np.clip(np.asarray(gray) * 255.0, 0, 255).astype(np.uint8)
+    d16 = np.clip(np.asarray(depth) * depth_scale, 0, 65535).astype(np.uint16)
+    return g8.astype(np.float32) / 255.0, d16.astype(np.float32) / depth_scale
+
+
+def corrupt_sequence(
+    grays: np.ndarray,
+    depths: np.ndarray,
+    seed: int = 1000,
+    textureless: tuple[int, int] | None = None,
+    contrast: float = 0.06,
+    quantize: bool = True,
+    **kw,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Corrupt a rendered sequence deterministically (per-frame seeded
+    generators, so disk writer and in-memory bench agree exactly).
+    `textureless=(k0, k1)` collapses contrast on that frame range; extra
+    kwargs pass through to `corrupt_rgbd`."""
+    gs, ds = [], []
+    for i in range(len(grays)):
+        rng = np.random.default_rng(seed + i)
+        c = contrast if textureless and textureless[0] <= i < textureless[1] else 1.0
+        g, d = corrupt_rgbd(rng, grays[i], depths[i], contrast=c, **kw)
+        if quantize:
+            g, d = quantize_rgbd(g, d)
+        gs.append(g)
+        ds.append(d)
+    return np.stack(gs), np.stack(ds)

@@ -19,7 +19,13 @@ bit-equal (same expression, same order); marching cubes: the same
 triangles in the same order, bit-equal; Hamming matching: best index,
 best and second distance equal (integers); MILD feature scores within
 1e-5 relative (each term bit-equal, sums in another order), candidates
-equal, and two calls bit-equal. The kernels are
+equal, and two calls bit-equal; the BA Schur reduction: W and b_p within
+1e-4 of the largest plain entry, S, rhs_c, V^-1 of the observed points and
+the back-substitution likewise for the RGB-D model (sums in another order)
+and, for the 2-D model, within 1e-2 of the plain version run in float64,
+as the float32 plain version is (`_held`: the 2-D float32 system is only
+as accurate as that), V^-1 of the padding points equal; two calls
+bit-equal. The kernels are
 built without implicit FMA contraction (the TSDF transform's FMAs are
 explicit, and its plain version makes the same ones), so per-element
 arithmetic rounds as the plain versions' does and only the order of the
@@ -43,12 +49,14 @@ from onepiece_tpu_torch.ops import marching_cubes as mc
 from onepiece_tpu_torch.ops.mc_tables import TRI_COUNTS
 from onepiece_tpu_torch.ops.mesh_dedup import dedup_triangle_soup as dedup_on_device
 from onepiece_tpu_torch.lcdetection import mild
+from onepiece_tpu_torch.ops import ba_schur
 from onepiece_tpu_torch.ops import hamming
 from onepiece_tpu_torch.ops import nn1 as nn1_ops
 from onepiece_tpu_torch.ops import tsdf as tsdf_ops
 from onepiece_tpu_torch.ops import tsdf_slots
 from onepiece_tpu_torch.registration import icp
 from onepiece_tpu_torch.systems.dense_slam import DenseSlam
+from onepiece_tpu_torch.systems.fused_ba import FusedBASlam
 from onepiece_tpu_torch.systems.fused_slam import FusedDenseFusion
 from onepiece_tpu_torch.systems.fused_sparse import FusedFBASlam
 from onepiece_tpu_torch.utils import synthetic
@@ -269,7 +277,7 @@ def test_slice_on_the_card_matches_cpu(dev, frames):
     est_card, _ = on_card.finalize()
     assert {k.name: k.launches for k in _build.KERNELS} == {
         "tsdf_integrate": 4, "dense_normal_eq": 3 * sum(on_card.iters), "nn1": 0, "marching_cubes": 0,
-        "hamming": 0}
+        "hamming": 0, "ba_schur": 0}
     on_cpu = FusedDenseFusion(cam, device="cpu", **kw)
     on_cpu.process_chunk(g.cpu(), d.cpu())
     est_cpu, _ = on_cpu.finalize()
@@ -399,7 +407,8 @@ def test_dense_slam_on_the_card(dev, slam_frames):
     launches = {k.name: k.launches for k in _build.KERNELS}
     assert len(icp_calls) >= 2
     assert launches == {"tsdf_integrate": 0, "dense_normal_eq": 11 * sum(dense.DEFAULT_ITERS),
-                        "nn1": (icp.DEFAULT_ITERS + 1) * len(icp_calls), "marching_cubes": 0, "hamming": 0}
+                        "nn1": (icp.DEFAULT_ITERS + 1) * len(icp_calls), "marching_cubes": 0, "hamming": 0,
+                        "ba_schur": 0}
     on_cpu = _dense_slam("cpu", grays.cpu(), depths.cpu())
     flags = [[m["icp_ok"] for m in s.metrics if "icp_ok" in m] for s in (on_card, on_cpu)]
     assert flags[0] == flags[1] == [False, True, True]
@@ -789,3 +798,207 @@ def test_fused_sparse_on_the_card(dev, frames):
     est = slam.trajectory()
     assert np.isfinite(est).all() and slam.edge_overflow == 0
     assert traj.ate_rmse(est, poses) < 0.05
+
+
+def _ba_problem(case: str, model: str, dev):
+    """A capacity-padded BA problem: F frames (pose 0 and the padding
+    inactive), P points of which the first `n_pts` are observed, O rows of
+    which the first are valid. `case` adds what it names."""
+    rng = np.random.default_rng(len(case) * 2 + (model == "2d"))
+    F, P, O, n_kf, n_pts, n_obs = {"orbit": (64, 1024, 4096, 8, 230, 604),
+                                   "loop": (128, 2048, 8192, 39, 1241, 4000),
+                                   "max_frames": (ba_schur.MAX_FRAMES, 64, 512, 40, 60, 300)}.get(
+                                       case, (16, 256, 1024, 10, 150, 600))
+    ang = rng.normal(size=(F, 3)) * 0.1
+    xi = np.concatenate([rng.normal(size=(F, 3)) * 0.2, ang], 1).astype(np.float32)
+    poses = se3.se3_exp(torch.from_numpy(xi)).numpy()
+    pts = np.concatenate([rng.uniform(-1, 1, (P, 2)), rng.uniform(1.5, 3.5, (P, 1))], 1).astype(np.float32)
+    frame = rng.integers(0, n_kf, O)
+    point = rng.integers(0, n_pts, O)
+    if case == "one_observation":  # point n_pts - 1 seen once
+        point[:n_obs][point[:n_obs] == n_pts - 1] = 0
+        point[5] = n_pts - 1
+    if case == "frame_without_observations":
+        frame[:n_obs][frame[:n_obs] == 3] = 4
+    if case == "two_in_one_frame":  # every other observation repeats the one before, with another measurement
+        frame[1:n_obs:2], point[1:n_obs:2] = frame[0:n_obs - 1:2], point[0:n_obs - 1:2]
+    pc = np.einsum("oij,oj->oi", poses[frame, :3, :3], pts[point]) + poses[frame, :3, 3]
+    pc_obs = (pc + rng.normal(size=pc.shape) * 0.003).astype(np.float32)
+    uv = np.stack([pc[:, 0] / pc[:, 2] * 260 + 80, pc[:, 1] / pc[:, 2] * 260 + 60], -1)
+    uv = (uv + rng.normal(size=uv.shape)).astype(np.float32)
+    valid = np.arange(O) < n_obs
+    pts_noisy = pts + rng.normal(size=pts.shape).astype(np.float32) * 0.01
+    pts_noisy[n_pts:] = 0
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
+    args = (t(poses), t(pts_noisy), t(frame), t(point), t(uv), t(valid), torch.tensor(3e-5, device=dev),
+            (260.0, 260.0, 80.0, 60.0), t(pc_obs) if model == "3d" else None)
+    return args, n_pts
+
+
+_BA_CASES = ["orbit", "loop", "one_observation", "padding_points", "frame_without_observations",
+             "two_in_one_frame", "max_frames"]
+
+
+def _rel(a, b) -> float:
+    return float((a.double() - b.double()).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def _held(kernel, plain, plain_cpu, exact, what: str, model: str) -> None:
+    """The RGB-D model: kernel within 1e-4 of the plain version's largest
+    entry. The 2-D model: at the first LM step's damping its float32 system
+    is set by rounding. Weakly triangulated points give damped blocks V of
+    condition ~1e4-1e5, which amplify the rounding of the Jacobian
+    products. The kernel rounds them as the plain version does on the CPU
+    (a multiply, then an add); on the card the plain version's einsums fuse
+    the two and round otherwise. Against float64 on these cases (an H100):
+    the kernel and the CPU plain version agree to 3 digits on V^-1 and dp
+    and within 1.3x on S and rhs_c, and the card's plain version lies
+    within 0.3x-3x of them. So the 2-D kernel's error against the plain
+    version run in float64 is held to 2x the larger of the two float32
+    plain versions' errors. `test_ba_schur_kernel_damps_as_plain` holds
+    both models within 1e-4 at larger dampings."""
+    if model == "3d":
+        assert _rel(kernel, plain) <= 1e-4, what
+    else:
+        ek, ep = _rel(kernel, exact), max(_rel(plain, exact), _rel(plain_cpu, exact))
+        assert ek <= 2 * ep, (what, ek, ep)
+
+
+@pytest.mark.parametrize("model", ["3d", "2d"])
+@pytest.mark.parametrize("case", _BA_CASES)
+def test_ba_schur_kernel_vs_plain(dev, case, model):
+    """The reduced system and the back-substitution against the plain
+    versions (JAX's dense form; see `_held`), one launch a wrapper call, two
+    calls bit-equal; at the orbit's and the loop's capacities, with a point
+    seen once, padding points, a frame with no observation, two
+    observations of one point in one frame, and the largest F the shared
+    strip takes."""
+    args, n_pts = _ba_problem(case, model, dev)
+    poses, points, frame, point, uv, valid, lam, intr, pc = args
+    lists = ba_schur.build_lists(frame, point, valid, poses.shape[0], points.shape[0])
+    _build.reset_launch_counts()
+    k = ba_schur.reduced_system(*args, lists=lists)
+    assert _build.BA_SCHUR.launches == 1
+    k2 = ba_schur.reduced_system(*args, lists=lists)
+    p = ba_schur.reduced_system_reference(*args)
+    x, c = p, p
+    if model == "2d":  # the plain version in float64, and in float32 on the CPU
+        x = ba_schur.reduced_system_reference(*(a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+                                                for a in args))
+        c = ba_schur.reduced_system_reference(*(a.cpu() if torch.is_tensor(a) else a for a in args))
+    torch.cuda.synchronize()
+    for name in ("S", "rhs_c", "Vinv", "b_p"):
+        assert torch.equal(getattr(k, name), getattr(k2, name)), name
+    # the linearisation: W of the listed observations and b_p, within 1e-4
+    assert _rel(k.W[valid], p.W[valid]) <= 1e-4 and _rel(k.b_p, p.b_p) <= 1e-4
+    for name in ("S", "rhs_c"):
+        _held(getattr(k, name), getattr(p, name), getattr(c, name).to(dev), getattr(x, name), name, model)
+    obs = torch.zeros(points.shape[0], dtype=torch.bool, device=dev)
+    obs[point[valid]] = True
+    pad = 1e9 * torch.eye(3, device=dev)  # a point with no observation damps to 1e-9 I
+    assert torch.equal(k.Vinv[~obs], p.Vinv[~obs]) and float((p.Vinv[~obs] - pad).abs().max()) <= 1e3
+    _held(k.Vinv[obs], p.Vinv[obs], c.Vinv.to(dev)[obs], x.Vinv[obs], "Vinv", model)
+    if case == "frame_without_observations":  # its diagonal block is the damping floor, its row elsewhere 0
+        blk = k.S[18:24]
+        assert bool((blk[:, 18:24] == 1e-9 * torch.eye(6, device=dev)).all()) and float(blk[:, :18].abs().max()) == 0
+    dc = torch.from_numpy(np.random.default_rng(1).normal(size=6 * poses.shape[0]).astype(np.float32) * 1e-3).to(dev)
+    _build.reset_launch_counts()
+    dk = ba_schur.back_substitute(k, dc, frame, point, lists)
+    assert _build.BA_SCHUR.launches == 1
+    dp = ba_schur.back_substitute_reference(p, dc, frame, point)
+    dx = ba_schur.back_substitute_reference(x, dc.to(x.S.dtype), frame, point)
+    dcpu = ba_schur.back_substitute_reference(c, dc.to(c.S.device), frame.to(c.S.device), point.to(c.S.device))
+    torch.cuda.synchronize()
+    assert torch.equal(dk, ba_schur.back_substitute(k2, dc, frame, point, lists))
+    _held(dk[:n_pts], dp[:n_pts], dcpu.to(dev)[:n_pts], dx[:n_pts], "dp", model)
+    assert float(dk[n_pts:].abs().max()) == 0
+
+
+# dampings the LM loop reaches after rejections (x2 each from 3e-5): the most
+# FusedBASlam's 8 steps reach, and one within the host loop's 20
+BA_DAMPINGS = (3e-5 * 2**8, 1.0)
+
+
+@pytest.mark.parametrize("lam", BA_DAMPINGS)
+@pytest.mark.parametrize("model", ["3d", "2d"])
+@pytest.mark.parametrize("case", _BA_CASES)
+def test_ba_schur_kernel_damps_as_plain(dev, case, model, lam):
+    """At the dampings LM reaches after rejections, both models' kernel
+    systems within 1e-4 of the plain version's largest entry (the damping
+    makes the 2-D blocks well conditioned: measured within 2e-5), while
+    the damping moves the plain S, V^-1 and dp by more than 1e-3 (measured:
+    7.6e-3 and more), so a kernel that dropped or misplaced lam fails."""
+    args, n_pts = _ba_problem(case, model, dev)
+    frame, point, valid = args[2], args[3], args[5]
+    lists = ba_schur.build_lists(frame, point, valid, args[0].shape[0], args[1].shape[0])
+    obs = lists.point_ptr.diff() > 0
+
+    def at(damping):
+        return (*args[:6], torch.tensor(damping, device=dev), *args[7:])
+
+    k = ba_schur.reduced_system(*at(lam), lists=lists)
+    p = ba_schur.reduced_system_reference(*at(lam))
+    p0 = ba_schur.reduced_system_reference(*at(0.0))
+    dc = torch.from_numpy(np.random.default_rng(1).normal(size=k.rhs_c.shape[0]).astype(np.float32) * 1e-3).to(dev)
+    dk = ba_schur.back_substitute(k, dc, frame, point, lists)
+    dp, dp0 = (ba_schur.back_substitute_reference(s, dc, frame, point) for s in (p, p0))
+    for name, a, b, b0 in (("S", k.S, p.S, p0.S), ("rhs_c", k.rhs_c, p.rhs_c, p0.rhs_c),
+                           ("Vinv", k.Vinv[obs], p.Vinv[obs], p0.Vinv[obs]),
+                           ("dp", dk[:n_pts], dp[:n_pts], dp0[:n_pts])):
+        assert _rel(a, b) <= 1e-4, (name, _rel(a, b))
+        assert name == "rhs_c" or _rel(b, b0) > 1e-3, (name, _rel(b, b0))
+
+
+def test_ba_schur_rejects_what_the_kernel_does_not_take(dev):
+    args, _ = _ba_problem("small", "3d", dev)
+    poses, points, frame, point, uv, valid, lam, intr, pc = args
+    lists = ba_schur.build_lists(frame, point, valid, poses.shape[0], points.shape[0])
+    with pytest.raises(ValueError, match="lists"):
+        ba_schur.reduced_system(*args)
+    with pytest.raises(ValueError, match="frames"):
+        big = torch.eye(4, device=dev).repeat(ba_schur.MAX_FRAMES + 1, 1, 1)
+        ba_schur.reduced_system(big, points, frame, point, uv, valid, lam, intr, pc, lists)
+    with pytest.raises(ValueError, match="dtype"):
+        ba_schur.reduced_system(poses.double(), points, frame, point, uv, valid, lam, intr, pc, lists)
+    with pytest.raises(ValueError, match="dtype"):
+        ba_schur.reduced_system(poses, points, frame.int(), point, uv, valid, lam, intr, pc, lists)
+    with pytest.raises(ValueError, match="contiguous"):
+        ba_schur.reduced_system(poses, points.T.contiguous().T, frame, point, uv, valid, lam, intr, pc, lists)
+    with pytest.raises(ValueError, match="shape"):
+        ba_schur.reduced_system(poses, points, frame, point, uv, valid, lam.reshape(1), intr, pc, lists)
+    k = ba_schur.reduced_system(*args, lists=lists)
+    dc = torch.zeros(6 * poses.shape[0], device=dev)
+    with pytest.raises(ValueError, match="lists"):
+        ba_schur.back_substitute(k, dc, frame, point)
+    plain = ba_schur.reduced_system_reference(*args)
+    with pytest.raises(ValueError, match="per-observation"):
+        ba_schur.back_substitute(plain, dc, frame, point, lists)
+
+
+def _ba_run(dev, grays, depths):
+    slam = FusedBASlam(CAM, device=dev, max_keypoints=500, keyframe_disparity=10.0, ba_iters=6)
+    slam.process_chunk(grays, depths)
+    return slam
+
+
+def test_fused_ba_on_the_card(dev, frames):
+    """FusedBASlam at 160x120 on the card: the BA kernel runs 2 launches an
+    LM iteration, no other kernel but Hamming; the trajectory in the CPU
+    run's regime (the two devices draw different random numbers); two card
+    runs bit-equal, track state included."""
+    poses, grays, depths = frames
+    _build.reset_launch_counts()
+    a = _ba_run(dev, grays, depths)
+    launches = {k.name: k.launches for k in _build.KERNELS}
+    assert launches["ba_schur"] == 2 * 6 and launches["hamming"] >= 2 * (len(grays) - 1)
+    assert sum(launches.values()) == launches["ba_schur"] + launches["hamming"]
+    b = _ba_run(dev, grays, depths)
+    cpu = _ba_run("cpu", grays.cpu(), depths.cpu())
+    est = a.trajectory()
+    assert np.isfinite(est).all() and a.pt_overflow == 0 and a.obs_overflow == 0 and a.n_pts > 0
+    ate, ate_cpu = traj.ate_rmse(est, poses), traj.ate_rmse(cpu.trajectory(), poses)
+    assert ate < 0.05 and ate < max(3 * ate_cpu, 0.05) and abs(a.num_kf - cpu.num_kf) <= 2, (ate, ate_cpu)
+    assert a.ba_mse < 1e-3 and a.host_reads == cpu.host_reads
+    assert np.array_equal(est, b.trajectory()) and a.ba_mse == b.ba_mse
+    for x, y in zip(a._track_state, b._track_state):
+        assert torch.equal(x, y)

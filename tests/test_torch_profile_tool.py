@@ -57,3 +57,21 @@ def test_sparse_profile_tool_reports_every_stage_on_cpu(capsys):
     assert stages["calls"]["tracking loop"] == 4 and stages["calls"]["features"] == 1
     assert stages["ms"]["tracking loop"] > 0
     assert out["host_sync_sites"] is None and out["profile"]["device_busy_ms"] is None
+
+
+def test_sparse_profile_tool_reports_ba_stages_on_cpu(capsys):
+    """`--system ba`: FusedBASlam's stages, the track linker and the LM loop
+    among them, each called once a chunk."""
+    import profile_torch_sparse
+
+    assert profile_torch_sparse.main(
+        ["--device", "cpu", "--system", "ba", "--level", "2", "--frames", "2", "--chunk", "1",
+         "--max-keypoints", "200", "--render-steps", "24"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["system"] == "ba" and out["size"] == "160x120" and out["device"] == "cpu"
+    stages = out["stages"]
+    assert list(stages["ms"]) == [*profile_torch_sparse.STAGES, *profile_torch_sparse.BA_STAGES,
+                                  "rest of process_chunk"]
+    assert stages["calls"]["track linker"] == 2 and stages["calls"]["LM loop"] == 2
+    assert stages["ms"]["track linker"] > 0 and stages["ms"]["LM loop"] > 0
+    assert out["host_sync_sites"] is None and out["profile"]["device_busy_ms"] is None

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Where the time of the PyTorch port's FusedFBASlam (sparse SLAM) goes.
+"""Where the time of the PyTorch port's FusedFBASlam (sparse SLAM) or
+FusedBASlam (BAFusion: the same front end, the track linker and full BA) goes.
 
     python3 tools/profile_torch_sparse.py                        # 640x480, 100-frame loop, chunks of 25, cuda
     python3 tools/profile_torch_sparse.py --trajectory orbit --frames 16 --chunk 16
+    python3 tools/profile_torch_sparse.py --system ba            # FusedBASlam
     python3 tools/profile_torch_sparse.py --device cpu --level 2 --frames 8 --chunk 4 --max-keypoints 300
 
 Renders the synthetic `loop_trajectory` (or `orbit_trajectory`) at
@@ -14,7 +16,9 @@ pass, then measures:
      loop-closure candidates (`lc_candidates_device`), loop-closure pair
      tracking (`FusedFBASlam._track` outside the tracking loop), the pose
      graph (`optimize_pose_graph`), the chunk's host reads (`fetch` outside
-     the tracking loop), and the rest; each call timed on the host clock
+     the tracking loop), with `--system ba` the track linker
+     (`fused_ba.link_edges`) and the LM loop (`bundle.optimize_device`),
+     and the rest; each call timed on the host clock
      from a drained device queue to a drained one (a call made inside
      another stage counts in that stage); total ms, calls, ms per frame;
   2. host syncs (CUDA only): synchronizing operations counted with
@@ -41,6 +45,7 @@ import torch
 
 from onepiece_tpu_torch import _build
 from onepiece_tpu_torch.geometry.camera import TUM_CAMERA
+from onepiece_tpu_torch.systems import fused_ba
 from onepiece_tpu_torch.systems import fused_sparse as fs
 from onepiece_tpu_torch.utils import synthetic
 from profile_torch_slice import _sync, _union_us, count_syncs
@@ -54,10 +59,14 @@ STAGES = {
     "pose graph": (fs.posegraph, "optimize_pose_graph"),
     "chunk host reads": (fs, "fetch"),
 }
+BA_STAGES = {
+    "track linker": (fused_ba, "link_edges"),
+    "LM loop": (fused_ba.bundle, "optimize_device"),
+}
 
 
 @contextlib.contextmanager
-def timing_stages(dev: torch.device, totals: dict, calls: dict):
+def timing_stages(dev: torch.device, totals: dict, calls: dict, stages: dict):
     """Wrap every stage's function: each outermost call adds its synced host ms."""
     saved, active = [], []
 
@@ -78,7 +87,7 @@ def timing_stages(dev: torch.device, totals: dict, calls: dict):
             return out
         return wrapped
 
-    for name, (obj, attr) in STAGES.items():
+    for name, (obj, attr) in stages.items():
         totals[name], calls[name] = 0.0, 0
         saved.append((obj, attr, getattr(obj, attr)))
         setattr(obj, attr, timed(name, getattr(obj, attr)))
@@ -100,9 +109,9 @@ def run(make, grays, depths, chunk: int) -> float:
     return (time.perf_counter() - t) * 1e3
 
 
-def stage_times(make, grays, depths, chunk: int) -> dict:
+def stage_times(make, grays, depths, chunk: int, stages: dict) -> dict:
     totals, calls = {}, {}
-    with timing_stages(make().device, totals, calls):
+    with timing_stages(make().device, totals, calls, stages):
         wall = run(make, grays, depths, chunk)
     totals["rest of process_chunk"] = wall - sum(totals.values())
     calls["rest of process_chunk"] = -(-len(grays) // chunk)
@@ -129,6 +138,7 @@ def profile_run(make, grays, depths, chunk: int) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--system", choices=("fba", "ba"), default="fba", help="FusedFBASlam or FusedBASlam")
     ap.add_argument("--trajectory", choices=("loop", "orbit"), default="loop")
     ap.add_argument("--frames", type=int, default=100)
     ap.add_argument("--chunk", type=int, default=25)
@@ -153,18 +163,22 @@ def main(argv=None) -> int:
     depths = torch.stack([d for d, _ in frames])
     grays = torch.stack([g for _, g in frames])
 
+    system = fused_ba.FusedBASlam if args.system == "ba" else fs.FusedFBASlam
+    stages = {**STAGES, **BA_STAGES} if args.system == "ba" else STAGES
+
     def make():
-        return fs.FusedFBASlam(cam, device=dev, max_keypoints=args.max_keypoints)
+        return system(cam, device=dev, max_keypoints=args.max_keypoints)
 
     run(make, grays, depths, args.chunk)  # warm: kernel library, allocator, solver handles
     syncs = count_syncs(dev, lambda: run(make, grays, depths, args.chunk))
     out = {
+        "system": args.system,
         "size": f"{cam.width}x{cam.height}",
         "trajectory": args.trajectory,
         "frames": args.frames,
         "chunk": args.chunk,
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
-        "stages": stage_times(make, grays, depths, args.chunk),
+        "stages": stage_times(make, grays, depths, args.chunk, stages),
         "host_sync_sites": syncs,
         "host_syncs_per_frame": sum(syncs.values()) / args.frames if syncs is not None else None,
         "profile": profile_run(make, grays, depths, args.chunk),
