@@ -71,7 +71,9 @@ Phases, in order; any failure exits non-zero before the final `ok` line:
      ground-truth pose, as in phase 8)
  10. BAFusion: the BA Schur kernel (`csrc/ba_schur.cu`) against its plain
      version on the inputs of `FusedBASlam`'s own BA steps, recorded in warm
-     runs (the orbit's first step, the loop's last chunk's first step): S,
+     runs (the orbit's first step, the loop's last chunk's first step, and
+     the latter again with its poses padded to BA_WIDE_FRAMES = 2,048
+     keyframe slots, 39 of them live): S,
      rhs_c, b_p, V^-1 of the observed points and the back-substitution
      within KERNEL2_TOL of the largest plain entry, V^-1 of the padding
      points equal, two calls bit-equal; the same at the dampings LM
@@ -102,7 +104,8 @@ float32 operations over 67 TFLOP/s, the published H100 SXM peaks at 700 W
 roofline_share = bound_ms / ms; the hamming entry adds the windowed, the
 all-valid and the MILD times, bounds and shares, and the launch floor; the
 ba_schur entry is one LM step's kernels at the orbit's BA call and adds the
-loop's (loop_*), ms/frame and ms a chunk of the linker and the LM loop), the card line, then
+loop's (loop_*), the loop's at 2,048 keyframe slots (wide_*), ms/frame and
+ms a chunk of the linker and the LM loop), the card line, then
 {"ok": true, "device": {...}} as the last line.
 """
 
@@ -178,6 +181,9 @@ BA_OPS_PER_PAIR = 216  # one 6x6 block of 3-term dot products (3 mul, 3 add each
 BA_OPS_PER_OBS = 717  # residual and Jacobians 39, W/U/g/V/e and Y 561, U_f and rhs_c sums 78, W^T dc 39
 BA_OPS_PER_POINT = 80  # damping 17, cofactor inverse 41, dp 21 and its sign
 BA_OPS_PER_FRAME = 66  # U_f damping 30, added into S 36
+BA_REDUCED_KERNELS = ("ba_points_kernel", "ba_blocks_kernel")  # launches A and B: reduced_system
+BA_BACK_KERNELS = ("ba_back_substitute_kernel",)  # launch C: back_substitute
+BA_WIDE_FRAMES = 2048  # keyframe slots of the loop's inputs padded past what a shared-memory strip of S takes
 
 
 def bound(n_bytes: float, n_ops: float, peak_ops_per_s: float = PEAK_F32_PER_S) -> dict:
@@ -898,12 +904,18 @@ def ba_phase(cam, dev, card, poses, grays, depths, sparse: dict) -> dict:
         calls.clear()
         run(l_grays, l_depths, LOOP_CHUNK)
         loop_call = calls[-BA_ITERS]  # the last chunk's first step
-        lam_reached["loop"] = max(float(a[6]) for a in calls)
+        lam_reached["loop"] = lam_reached["wide loop"] = max(float(a[6]) for a in calls)
         del calls[:]
+
+    # the loop's inputs again at F = BA_WIDE_FRAMES keyframe slots (identity
+    # poses past the loop's 128): above the 1,613 frames a shared-memory strip
+    # of S would cap
+    n_wide = BA_WIDE_FRAMES - loop_call[0].shape[0]
+    wide_call = (torch.cat([loop_call[0], torch.eye(4, device=dev).expand(n_wide, 4, 4)]), *loop_call[1:])
 
     # -- (b) the kernel against its plain version on those inputs, timed --
     res = {}
-    for shape, args in (("orbit", orbit_call), ("loop", loop_call)):
+    for shape, args in (("orbit", orbit_call), ("loop", loop_call), ("wide loop", wide_call)):
         # poses, points, frame, point, uv, valid, lam, intrinsics, pc_obs
         frame, point = args[2], args[3]
         lists = ba_schur.build_lists(frame, point, args[5], args[0].shape[0], args[1].shape[0])
@@ -961,9 +973,8 @@ def ba_phase(cam, dev, card, poses, grays, depths, sparse: dict) -> dict:
                   f"lam {lam:.4g}: rel errs {', '.join(f'{n} {e:.3g}' for n, e in err.items())}, the damping "
                   f"moves the plain system by {', '.join(f'{n} {e:.3g}' for n, e in moved.items())}"
                   for lam, (err, moved) in damping.items()), flush=True)
-        t_red = device_times(lambda: ba_schur.reduced_system(*args, **kw), ("ba_points_kernel", "ba_frames_kernel"))
-        t_back = device_times(lambda: ba_schur.back_substitute(k, dc, frame, point, lists),
-                              ("ba_back_substitute_kernel",))
+        t_red = device_times(lambda: ba_schur.reduced_system(*args, **kw), BA_REDUCED_KERNELS)
+        t_back = device_times(lambda: ba_schur.back_substitute(k, dc, frame, point, lists), BA_BACK_KERNELS)
         for what, t in (("reduced_system", t_red), ("back_substitute", t_back)):
             if t["other"] is None:
                 print(f"note: ba_schur {what} at the {shape} call: the profiler recorded no full session, kernels "
@@ -971,9 +982,9 @@ def ba_phase(cam, dev, card, poses, grays, depths, sparse: dict) -> dict:
             elif t["other"] != 0:
                 raise AssertionError(f"ba_schur {what}: {t['other']} other kernels a call (its own kernels only)")
         ms = (sum(t_red["ms"].values()) if t_red["ms"] else device_ms(
-            lambda: ba_schur.reduced_system(*args, **kw), ("ba_points_kernel", "ba_frames_kernel"))) + \
+            lambda: ba_schur.reduced_system(*args, **kw), BA_REDUCED_KERNELS)) + \
             (sum(t_back["ms"].values()) if t_back["ms"] else device_ms(
-                lambda: ba_schur.back_substitute(k, dc, frame, point, lists), ("ba_back_substitute_kernel",)))
+                lambda: ba_schur.back_substitute(k, dc, frame, point, lists), BA_BACK_KERNELS))
         event_ms = cuda_ms(lambda: ba_schur.back_substitute(ba_schur.reduced_system(*args, **kw), dc, frame,
                                                                point, lists))
         plain_ms = cuda_ms(lambda: ba_schur.back_substitute_reference(
@@ -981,20 +992,21 @@ def ba_phase(cam, dev, card, poses, grays, depths, sparse: dict) -> dict:
         n_bytes, n_ops, n_pairs = ba_bytes_ops(args, lists)
         b = bound(n_bytes, n_ops)
         live = bound(*ba_bytes_ops(args, lists, live=True)[:2])
+        per_kernel = {**(t_red["ms"] or {}), **(t_back["ms"] or {})}
         res[shape] = dict(ms=ms, event_ms=event_ms, plain_ms=plain_ms, max_abs_err=abs_err,
-                          max_rel_err=max(errs.values()), live_bound_ms=live["bound_ms"], **b)
+                          max_rel_err=max(errs.values()), live_bound_ms=live["bound_ms"],
+                          kernel_ms={n: per_kernel.get(n) for n in (*BA_REDUCED_KERNELS, *BA_BACK_KERNELS)}, **b)
         print(f"ba_schur at the {shape}'s BA call: F {args[0].shape[0]}, P {args[1].shape[0]}, O "
               f"{args[2].shape[0]} ({int(lists.frame_ptr[-1])} valid, {n_pairs} pairs, {int(observed.sum())} "
               f"points observed): rel errs {', '.join(f'{n} {e:.3g}' for n, e in errs.items())} (<= "
-              f"{KERNEL2_TOL}), padding V^-1 equal, two calls bit-equal; device ms a step {ms:.4f} (points "
-              f"{t_red['ms'] and round(t_red['ms']['ba_points_kernel'], 4)}, frames "
-              f"{t_red['ms'] and round(t_red['ms']['ba_frames_kernel'], 4)}, back-substitution "
-              f"{t_back['ms'] and round(t_back['ms']['ba_back_substitute_kernel'], 4)}; 0 other kernels), "
+              f"{KERNEL2_TOL}), padding V^-1 equal, two calls bit-equal; device ms a step {ms:.4f} ("
+              f"{', '.join(f'{n} {v if v is None else round(v, 4)}' for n, v in res[shape]['kernel_ms'].items())}; "
+              f"0 other kernels), "
               f"{event_ms:.4f} by events, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.5f} ms "
               f"({b['bound_by']}: {n_ops} operations, {n_bytes} B), roofline share {b['bound_ms'] / ms:.4f}; over "
               f"the live frames and points only: bound {live['bound_ms']:.5f} ms ({live['bound_by']}), share "
               f"{live['bound_ms'] / ms:.4f}", flush=True)
-    del orbit_call, loop_call
+    del orbit_call, loop_call, wide_call
 
     # -- (c) FusedBASlam on the orbit, one chunk: launches, syncs, ATE, repeatability --
     launches = []
@@ -1092,15 +1104,17 @@ def ba_phase(cam, dev, card, poses, grays, depths, sparse: dict) -> dict:
           f"{', '.join(f'{k} {v * 1e3:.2f} mm' for k, v in BENCH_NOISY_BA_ATE_M.items())}, other chips)",
           flush=True)
 
-    o, lo = res["orbit"], res["loop"]
+    o, lo, wide = res["orbit"], res["loop"], res["wide loop"]
     kernel = dict(**o, loop_ms=lo["ms"], loop_event_ms=lo["event_ms"], loop_plain_ms=lo["plain_ms"],
                   loop_bound_ms=lo["bound_ms"], loop_share=lo["bound_ms"] / lo["ms"],
-                  loop_live_bound_ms=lo["live_bound_ms"],
+                  loop_live_bound_ms=lo["live_bound_ms"], loop_kernel_ms=lo["kernel_ms"],
+                  wide_frames=BA_WIDE_FRAMES, wide_ms=wide["ms"], wide_plain_ms=wide["plain_ms"],
+                  wide_bound_ms=wide["bound_ms"], wide_max_rel_err=wide["max_rel_err"],
                   loop_max_abs_err=lo["max_abs_err"], loop_max_rel_err=lo["max_rel_err"], orbit_ms_per_frame=orbit_ms,
                   linker_ms_per_chunk=dict(orbit=orbit_stage["linker"], loop=loop_stage["linker"]),
                   lm_loop_ms_per_chunk=dict(orbit=orbit_stage["LM loop"], loop=loop_stage["LM loop"]))
-    kernel.update(max_abs_err=max(o["max_abs_err"], lo["max_abs_err"]),
-                  max_rel_err=max(o["max_rel_err"], lo["max_rel_err"]))
+    kernel.update(max_abs_err=max(r["max_abs_err"] for r in res.values()),
+                  max_rel_err=max(r["max_rel_err"] for r in res.values()))
     return dict(kernel=kernel, launches=launches)
 
 

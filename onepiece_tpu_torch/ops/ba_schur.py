@@ -15,12 +15,15 @@ Jacobians J_c and point Jacobians J_p of the valid observations:
 
 The JAX package scatters W into a dense (F, 6, P, 3) tensor and contracts it
 on the MXU. On CUDA tensors `reduced_system` and `back_substitute` launch
-the hand-written kernels of `csrc/ba_schur.cu`, which walk the
-observations block-sparse, in a fixed order, with no atomics: two calls are
-bit-equal. They take the observations sorted by frame and by point
-(`build_lists`, once per LM loop: the observation set is fixed while it
-runs). On CPU tensors the plain versions run: JAX's dense formulation,
-literally, with the sequential `index_add_` of the CPU.
+the hand-written kernels of `csrc/ba_schur.cu`, which work block-sparse:
+S's block (f, g) is summed over the points that frames f and g share, in a
+fixed order, with no atomics, so two calls are bit-equal, and S is written
+straight to device memory, so F is bounded by device memory alone. They
+take the observations sorted by point and by (frame, point), and the list
+of frames that hold an observation (`build_lists`, once per LM loop: the
+observation set is fixed while it runs). On CPU tensors the plain versions
+run: JAX's dense formulation, literally, with the sequential `index_add_`
+of the CPU.
 
 V is inverted by cofactors in both versions (the JAX package calls
 `jnp.linalg.inv`, an LU): the kernel and its plain version then differ only
@@ -42,19 +45,24 @@ from ..geometry import se3
 SIGMA_Z_A = 0.0015  # m
 SIGMA_Z_B = 0.0019  # m^-1
 HUBER_DELTA_SIGMA = 3.0
-# the strip of S one CTA keeps in shared memory: 6 rows x 6F floats, plus
-# the 36 floats of U_f, within the 232,448 bytes a block can use
-MAX_FRAMES = (232448 - 36 * 4) // (36 * 4)
+# the kernel's row of floats per observation: W_o, Y_o, U_o, g_o, each at a
+# 16-byte boundary (csrc/ba_schur.cu kObsStride); W_o leads it
+OBS_ROW = 84
 
 
 class ObsLists(NamedTuple):
-    """The valid observations sorted by frame and by point (stable, so each
-    list keeps observation order), with CSR offsets."""
+    """The valid observations sorted by (frame, point) and by point (stable,
+    so observations of one frame and point, or of one point, keep their
+    order), with CSR offsets; the point of each entry of the frame lists;
+    the frames that hold an observation."""
 
     frame_ptr: torch.Tensor  # (F + 1,) int64
-    frame_obs: torch.Tensor  # (O,) int64 observation indices, by frame
+    frame_obs: torch.Tensor  # (O,) int64 observation indices, by frame, then point
     point_ptr: torch.Tensor  # (P + 1,) int64
     point_obs: torch.Tensor  # (O,) int64 observation indices, by point
+    frame_point: torch.Tensor  # (O,) int64 the point of each frame_obs entry (P past the valid ones)
+    live_frames: torch.Tensor  # (F,) int64 the frames with an observation, ascending, then F
+    num_live: torch.Tensor  # () int64 how many frames have an observation
 
 
 class SchurSystem(NamedTuple):
@@ -139,19 +147,25 @@ def inv3(M: torch.Tensor) -> torch.Tensor:
 
 
 def build_lists(frame, point, valid, num_frames: int, num_points: int) -> ObsLists:
-    """Stable sorts of the valid observations by frame and by point, on the
-    device and without a host read. An invalid row, or one whose indices lie
-    outside the capacities, takes key F (P) and falls off the lists."""
+    """Stable sorts of the valid observations by (frame, point) and by
+    point, and the frames that hold one, on the device and without a host
+    read. An invalid row, or one whose indices lie outside the capacities,
+    takes the key past the last (F P, P) and falls off the lists."""
     ok = valid & (frame >= 0) & (frame < num_frames) & (point >= 0) & (point < num_points)
+    dev = frame.device
 
-    def csr(key, n):
-        key = torch.where(ok, key, n)
+    def csr(key, n, stride=1):
+        key = torch.where(ok, key, n * stride)
         srt, order = torch.sort(key, stable=True)
-        return torch.searchsorted(srt, torch.arange(n + 1, device=key.device)), order
+        return srt, torch.searchsorted(srt, torch.arange(n + 1, device=dev) * stride), order
 
-    fp, fo = csr(frame, num_frames)
-    pp, po = csr(point, num_points)
-    return ObsLists(fp, fo, pp, po)
+    fsrt, fp, fo = csr(frame * num_points + point, num_frames, num_points)
+    _, pp, po = csr(point, num_points)
+    frame_point = torch.where(fsrt < num_frames * num_points, fsrt % num_points, num_points)
+    live = fp.diff() > 0
+    frames = torch.arange(num_frames, device=dev)
+    live_frames = torch.sort(torch.where(live, frames, num_frames)).values
+    return ObsLists(fp, fo, pp, po, frame_point, live_frames, live.sum())
 
 
 def reduced_system_reference(poses, points, frame, point, uv, valid, lam, intr, pc_obs=None) -> SchurSystem:
@@ -185,9 +199,8 @@ def back_substitute_reference(system: SchurSystem, dc, frame, point) -> torch.Te
 def _check_inputs(poses, points, frame, point, uv, pc_obs, lam, lists: ObsLists):
     dev = poses.device
     F, P, O = poses.shape[0], points.shape[0], frame.shape[0]
-    if not 1 <= F <= MAX_FRAMES or P < 1:
-        raise ValueError(f"ba_schur: F = {F} frames (1..{MAX_FRAMES}: the strip of S a CTA keeps in "
-                         f"shared memory), P = {P} points (>= 1)")
+    if F < 1 or P < 1:
+        raise ValueError(f"ba_schur: F = {F} frames, P = {P} points (>= 1 each)")
     _build.require(poses, "poses", torch.float32, (F, 4, 4), dev)
     _build.require(points, "points", torch.float32, (P, 3), dev)
     _build.require(frame, "frame", torch.int64, (O,), dev)
@@ -197,8 +210,8 @@ def _check_inputs(poses, points, frame, point, uv, pc_obs, lam, lists: ObsLists)
     else:
         _build.require(pc_obs, "pc_obs", torch.float32, (O, 3), dev)
     _build.require(lam, "lam", torch.float32, (), dev)
-    for name, t, n in zip(ObsLists._fields, lists, (F + 1, O, P + 1, O)):
-        _build.require(t, name, torch.int64, (n,), dev)
+    for name, t, shape in zip(ObsLists._fields, lists, ((F + 1,), (O,), (P + 1,), (O,), (O,), (F,), ())):
+        _build.require(t, name, torch.int64, shape, dev)
 
 
 def _reduced_system_cuda(poses, points, frame, point, uv, lam, intr, pc_obs, lists) -> SchurSystem:
@@ -210,12 +223,11 @@ def _reduced_system_cuda(poses, points, frame, point, uv, lam, intr, pc_obs, lis
     rhs = torch.empty(6 * F, **e)
     Vinv = torch.empty((P, 3, 3), **e)
     b_p = torch.empty((P, 3), **e)
-    per_obs = torch.empty((O, 18 + 18 + 36 + 6), **e)  # W, Y = W V^-1, U_o, J_c^T w r: scratch of launch A
-    W, Y, Uo, go = per_obs.split((18, 18, 36, 6), 1)
+    per_obs = torch.empty((O, OBS_ROW), **e)  # W, Y = W V^-1, U_o, J_c^T w r: scratch of launch A
     err = _build.library().ba_schur(
         poses.data_ptr(), points.data_ptr(), frame.data_ptr(), point.data_ptr(),
         uv.data_ptr() if pc_obs is None else pc_obs.data_ptr(), int(pc_obs is not None), lam.data_ptr(),
-        *(float(x) for x in intr), *(t.data_ptr() for t in lists), F, P, O,
+        *(float(x) for x in intr), *(t.data_ptr() for t in lists), F, P,
         S.data_ptr(), rhs.data_ptr(), Vinv.data_ptr(), b_p.data_ptr(), per_obs.data_ptr(),
         _build.stream_handle(poses),
     )
@@ -231,7 +243,7 @@ def _back_substitute_cuda(system: SchurSystem, dc, frame, lists: ObsLists) -> to
     _build.require(frame, "frame", torch.int64, (O,), dev)
     _build.require(lists.point_ptr, "point_ptr", torch.int64, (P + 1,), dev)
     _build.require(lists.point_obs, "point_obs", torch.int64, (O,), dev)
-    if system.W.shape != (O, 6, 3) or system.W.stride() != (78, 3, 1):
+    if system.W.shape != (O, 6, 3) or system.W.stride() != (OBS_ROW, 3, 1):
         raise ValueError("back_substitute: W must be the kernel's per-observation rows (reduced_system's)")
     dp = torch.empty((P, 3), dtype=torch.float32, device=dev)
     err = _build.library().ba_back_substitute(

@@ -234,6 +234,100 @@ def test_plain_reduced_system_matches_float64_assembly(prob, model, dtype):
     assert np.allclose(sys_.Vinv.numpy()[~observed], 1e9 * np.eye(3), rtol=1e-6)
 
 
+def _lists_problem(prob):
+    """`prob` with a repeated (frame, point) (row 0 again, another
+    measurement), a frame without observations in the middle (frame 3's
+    rows invalid) beside the two padding frames, and the invalid rows."""
+    pr = {k: v.copy() for k, v in prob.items()}
+    for k, extra in (("frame", None), ("point", None), ("uv", pr["uv"][0] + 1.5), ("pc_obs", pr["pc_obs"][0] + 0.002),
+                     ("valid", True)):
+        pr[k] = np.concatenate([pr[k], [pr[k][0] if extra is None else extra]])
+    pr["valid"] &= pr["frame"] != 3
+    return pr
+
+
+def _numpy_lists(frame, point, valid, F, P):
+    """`build_lists`' fields, written out with Python sorts."""
+    rows = range(len(frame))
+    ok = [o for o in rows if valid[o] and 0 <= frame[o] < F and 0 <= point[o] < P]
+    bad = [o for o in rows if o not in set(ok)]
+    by_frame = sorted(ok, key=lambda o: (frame[o], point[o], o)) + bad
+    by_point = sorted(ok, key=lambda o: (point[o], o)) + bad
+    f_count = np.bincount(frame[ok], minlength=F)
+    live = [f for f in range(F) if f_count[f] > 0]
+    return dict(frame_ptr=np.r_[0, np.cumsum(f_count)], frame_obs=by_frame,
+                point_ptr=np.r_[0, np.cumsum(np.bincount(point[ok], minlength=P))], point_obs=by_point,
+                frame_point=[point[o] for o in by_frame[: len(ok)]] + [P] * len(bad),
+                live_frames=live + [F] * (F - len(live)), num_live=len(live))
+
+
+def _launch_b_pairs(lists, num_frames: int, chunk: int) -> list[tuple]:
+    """The pairs (f, g, o1, o2) that launch B of `csrc/ba_schur.cu` sums,
+    walked as it walks them: for each frame f, its keys (the points of its
+    observations, ascending) in chunks of `chunk`; for each live column g and
+    each of g's observations, the number of f's keys below its point by
+    binary lifting (the largest power of two <= n first), then the run of
+    keys equal to it."""
+    fp, fo, fpt = (x.tolist() for x in (lists.frame_ptr, lists.frame_obs, lists.frame_point))
+    live = lists.live_frames[: int(lists.num_live)].tolist()
+    pairs = []
+    for f in range(num_frames):
+        for c0 in range(fp[f], fp[f + 1], chunk):
+            keys = fpt[c0 : min(c0 + chunk, fp[f + 1])]
+            n = len(keys)
+            for g in live:
+                for b in range(fp[g], fp[g + 1]):
+                    q, pos, step = fpt[b], 0, 1 << (n.bit_length() - 1)
+                    while step:
+                        if pos + step <= n and keys[pos + step - 1] < q:
+                            pos += step
+                        step >>= 1
+                    while pos < n and keys[pos] == q:
+                        pairs.append((f, g, fo[c0 + pos], fo[b]))
+                        pos += 1
+    return pairs
+
+
+@pytest.mark.parametrize("chunk", [512, 3])
+def test_build_lists_match_numpy_and_launch_b_finds_every_pair(prob, chunk):
+    """`build_lists` (the lists the kernel walks, made once per LM loop)
+    against a numpy construction, on the padded problem with a repeated
+    (frame, point), a frame without observations and invalid rows. Launch
+    B's walk over them (`_launch_b_pairs`, in the kernel's chunks of 512
+    observations and in chunks of 3) finds every pair of valid observations
+    of one point once: sum over points of n_p^2 pairs, and summing Y_o1
+    W_o2^T over them, with damp(U) on the diagonal, gives the plain
+    version's S in float64 (to 1e-10: the same terms in another order)."""
+    pr = _lists_problem(prob)
+    t = {k: torch.from_numpy(v) for k, v in pr.items()}
+    lists = ba_schur.build_lists(t["frame"], t["point"], t["valid"], F_CAP, P_CAP)
+    want = _numpy_lists(pr["frame"], pr["point"], pr["valid"], F_CAP, P_CAP)
+    for name, got in lists._asdict().items():
+        assert got.dtype == torch.int64 and np.array_equal(got.numpy(), np.asarray(want[name])), name
+    assert lists.live_frames[: int(lists.num_live)].tolist() == [0, 1, 2, 4, 5]
+
+    pairs = _launch_b_pairs(lists, F_CAP, chunk)
+    n_p = np.bincount(pr["point"][pr["valid"]], minlength=P_CAP)
+    ok = np.nonzero(pr["valid"])[0]
+    every = {(pr["frame"][a], pr["frame"][b], a, b) for a in ok for b in ok if pr["point"][a] == pr["point"][b]}
+    assert len(pairs) == int((n_p**2).sum()) == len(every) and set(pairs) == every
+
+    d = {k: v.double() if v.is_floating_point() else v for k, v in t.items()}
+    lam = torch.tensor(3e-5, dtype=torch.float64)
+    plain = ba_schur.reduced_system_reference(d["poses"], d["points"], d["frame"], d["point"], d["uv"], d["valid"],
+                                              lam, INTR, d["pc_obs"])
+    Y = torch.einsum("oij,ojk->oik", plain.W, plain.Vinv[d["point"]])
+    S = torch.zeros((6 * F_CAP, 6 * F_CAP), dtype=torch.float64)
+    for f, g, o1, o2 in pairs:
+        S[6 * f : 6 * f + 6, 6 * g : 6 * g + 6] -= Y[o1] @ plain.W[o2].T
+    _, J_pose, _, w = ba_schur._linearize(d["poses"], d["points"], d["frame"], d["point"], d["uv"], d["valid"],
+                                          INTR, d["pc_obs"])
+    U = torch.zeros((F_CAP, 6, 6), dtype=torch.float64).index_add_(
+        0, d["frame"], torch.einsum("oki,ok,okj->oij", J_pose, w, J_pose))
+    S += torch.block_diag(*ba_schur.damp(U, lam))
+    _close(S.numpy(), plain.S.numpy(), 1e-10, "S from the walked pairs")
+
+
 @pytest.mark.parametrize("model", ["2d", "3d"])
 def test_optimize_device_matches_jax(prob, model):
     pc = prob["pc_obs"] if model == "3d" else None
@@ -291,3 +385,33 @@ def test_schur_errors_tool_on_cpu(capsys):
     assert [(r["inverse"], r["solve"]) for r in rows] == [("cofactor", "float32"), ("cofactor", "float64"),
                                                            ("lu", "float32"), ("lu", "float64")]
     assert all(0 < r["poses"] < 1e-2 and 0 < r["points"] < 1e-2 for r in rows)
+
+
+def test_compare_ba_schur_tool_on_cpu(capsys):
+    """`tools/compare_torch_ba_schur.py` on the CPU, this tree against
+    itself: 4 orbit frames at 160x120, 300 keypoints, no loop, one round.
+    Both trees' plain versions are held to the plain version, no device time
+    is reported, and the two trees' FusedBASlam runs agree. One intra-op
+    thread: the run is thousands of small operations, whose thread pools
+    stall each other when the test workers share the cores."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
+    import compare_torch_ba_schur as tool
+
+    root = str(Path(__file__).resolve().parent.parent)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert tool.main(["--parent", root, "--device", "cpu", "--level", "2", "--frames", "4", "--loop-frames", "0",
+                          "--max-keypoints", "300", "--rounds", "1"]) == 0
+    finally:
+        torch.set_num_threads(threads)
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["device"] == "cpu" and out["launch_b_speedup"] is None and list(out["bound"]) == ["orbit"]
+    assert out["bound"]["orbit"]["pairs"] > 0 and out["bound"]["orbit"]["frames"] == 64
+    for name in ("other", "this"):
+        rows = out["steps"][name]["orbit"]
+        assert len(rows) == 2 and all(r["step_ms"] is None and r["host_ms"] > 0 and r["max_rel_err"] == 0
+                                      for r in rows)
+    runs = out["fused_ba_slam"]
+    assert runs["this"]["orbit"][0]["points"] > 0 and runs["other"]["orbit"][0] == {
+        **runs["this"]["orbit"][0], "ms_per_frame": runs["other"]["orbit"][0]["ms_per_frame"]}

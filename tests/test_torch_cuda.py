@@ -807,7 +807,8 @@ def _ba_problem(case: str, model: str, dev):
     rng = np.random.default_rng(len(case) * 2 + (model == "2d"))
     F, P, O, n_kf, n_pts, n_obs = {"orbit": (64, 1024, 4096, 8, 230, 604),
                                    "loop": (128, 2048, 8192, 39, 1241, 4000),
-                                   "max_frames": (ba_schur.MAX_FRAMES, 64, 512, 40, 60, 300)}.get(
+                                   "max_frames": (1613, 64, 512, 40, 60, 300),
+                                   "f2048_few_live": (2048, 64, 512, 8, 60, 300)}.get(
                                        case, (16, 256, 1024, 10, 150, 600))
     ang = rng.normal(size=(F, 3)) * 0.1
     xi = np.concatenate([rng.normal(size=(F, 3)) * 0.2, ang], 1).astype(np.float32)
@@ -822,6 +823,8 @@ def _ba_problem(case: str, model: str, dev):
         frame[:n_obs][frame[:n_obs] == 3] = 4
     if case == "two_in_one_frame":  # every other observation repeats the one before, with another measurement
         frame[1:n_obs:2], point[1:n_obs:2] = frame[0:n_obs - 1:2], point[0:n_obs - 1:2]
+    if case == "f2048_few_live":  # the live frames spread over the capacity, the last one among them
+        frame = np.linspace(0, F - 1, n_kf).astype(np.int64)[frame]
     pc = np.einsum("oij,oj->oi", poses[frame, :3, :3], pts[point]) + poses[frame, :3, 3]
     pc_obs = (pc + rng.normal(size=pc.shape) * 0.003).astype(np.float32)
     uv = np.stack([pc[:, 0] / pc[:, 2] * 260 + 80, pc[:, 1] / pc[:, 2] * 260 + 60], -1)
@@ -836,7 +839,7 @@ def _ba_problem(case: str, model: str, dev):
 
 
 _BA_CASES = ["orbit", "loop", "one_observation", "padding_points", "frame_without_observations",
-             "two_in_one_frame", "max_frames"]
+             "two_in_one_frame", "max_frames", "f2048_few_live"]
 
 
 def _rel(a, b) -> float:
@@ -871,8 +874,8 @@ def test_ba_schur_kernel_vs_plain(dev, case, model):
     versions (JAX's dense form; see `_held`), one launch a wrapper call, two
     calls bit-equal; at the orbit's and the loop's capacities, with a point
     seen once, padding points, a frame with no observation, two
-    observations of one point in one frame, and the largest F the shared
-    strip takes."""
+    observations of one point in one frame, at F = 1,613, and at F = 2,048
+    with 8 live frames spread over the capacity."""
     args, n_pts = _ba_problem(case, model, dev)
     poses, points, frame, point, uv, valid, lam, intr, pc = args
     lists = ba_schur.build_lists(frame, point, valid, poses.shape[0], points.shape[0])
@@ -956,8 +959,8 @@ def test_ba_schur_rejects_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="lists"):
         ba_schur.reduced_system(*args)
     with pytest.raises(ValueError, match="frames"):
-        big = torch.eye(4, device=dev).repeat(ba_schur.MAX_FRAMES + 1, 1, 1)
-        ba_schur.reduced_system(big, points, frame, point, uv, valid, lam, intr, pc, lists)
+        none = torch.empty((0, 4, 4), device=dev)
+        ba_schur.reduced_system(none, points, frame, point, uv, valid, lam, intr, pc, lists)
     with pytest.raises(ValueError, match="dtype"):
         ba_schur.reduced_system(poses.double(), points, frame, point, uv, valid, lam, intr, pc, lists)
     with pytest.raises(ValueError, match="dtype"):
