@@ -90,8 +90,25 @@ Phases, in order; any failure exits non-zero before the final `ok` line:
      chunk of the track linker and the LM loop, and the corrupted orbit
      (`corrupt_sequence`: finite poses, >= 3 keyframes; its ATE printed
      beside BENCH_r05's for other chips)
+ 11. real input and state: (a) `io/tum.write_synthetic_tum` renders the
+     16-frame orbit on the card and writes it as a TUM folder with the
+     port's PNG encoder (encode ms per frame, the folder's MB); (b) the
+     folder read back through `tools/_torch_common.load_frames`, each gray
+     and depth bit-equal to `quantize_rgbd` of the in-memory render of
+     phase 5 (decode ms per frame); (c) `FusedDenseFusion` from disk in
+     chunks of 8, the frames decoded in the loop as a CLI runs them and
+     uploaded through pinned memory: ATE <= 2 mm, no block overflow, no host
+     sync in the frame loop, the TSDF and GN-step launches counted; ms per
+     frame over 5 runs beside the same frames preloaded on the card; (d)
+     frames 0-7, `utils/checkpoint.save`, `load(..., device="cuda")` into a
+     fresh instance, frames 8-15: poses, pool and hash table bit-equal to
+     (c)'s uninterrupted run (save and load ms, the file's MB); (e) the
+     dataset CLIs `torch_fused_fusion --checkpoint`, `torch_fba_fusion`,
+     `torch_dense_odometry`, `torch_sparse_odometry` and
+     `torch_image_sequence_integration` on the folder, started together:
+     each exits 0 with a finite ATE, the fused one's <= 2 mm
 Prints one JSON line of per-kernel results (launches: the counted runs of
-phases 5 (gray and rgb), 7 and 8 together, for hamming phase 9's, for
+phases 5 (gray and rgb), 7, 8 and 11 together, for hamming phase 9's, for
 ba_schur phase 10's; ms: the kernels' device time per
 wrapper call from the profiler (from CUDA events around each single call
 where the profiler records none; a note on stderr says so); event_ms and plain_ms: CUDA events around
@@ -111,12 +128,16 @@ ms a chunk of the linker and the LM loop), the card line, then
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
+import os
+import re
 import subprocess
 import sys
 import time
 import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -179,7 +200,7 @@ BENCH_NOISY_BA_ATE_M = {"JAX on its TPU (BENCH_r05)": 0.01785, "reference CPU bu
 # float32 operations of the BA Schur work, counted from csrc/ba_schur.cu (RGB-D model)
 BA_OPS_PER_PAIR = 216  # one 6x6 block of 3-term dot products (3 mul, 3 add each)
 BA_OPS_PER_OBS = 717  # residual and Jacobians 39, W/U/g/V/e and Y 561, U_f and rhs_c sums 78, W^T dc 39
-BA_OPS_PER_POINT = 80  # damping 17, cofactor inverse 41, dp 21 and its sign
+BA_OPS_PER_POINT = 105  # damping 17, pivoted inverse 66 (5 |x|, 3 comparisons, 58 arithmetic), dp 21 and its sign
 BA_OPS_PER_FRAME = 66  # U_f damping 30, added into S 36
 BA_REDUCED_KERNELS = ("ba_points_kernel", "ba_blocks_kernel")  # launches A and B: reduced_system
 BA_BACK_KERNELS = ("ba_back_substitute_kernel",)  # launch C: back_substitute
@@ -1118,6 +1139,186 @@ def ba_phase(cam, dev, card, poses, grays, depths, sparse: dict) -> dict:
     return dict(kernel=kernel, launches=launches)
 
 
+ATE_LINE = re.compile(r"ATE RMSE \(first (\d+) frames\): (\S+) m")
+DISK_CHUNK = 8  # phase 11's chunks: frames 0-7 are checkpointed, 8-15 resumed
+DISK_CLI_TIMEOUT_S = 300
+DISK_CLIS = (  # (tool, arguments besides --dataset; outputs go to the run's folder)
+    ("torch_fused_fusion", ("--checkpoint", "fused.npz", "--out-mesh", "fused.ply", "--out-traj", "fused.txt")),
+    ("torch_fba_fusion", ("--out-traj", "fba.txt")),
+    ("torch_dense_odometry", ("--out", "dense_odom.txt")),
+    ("torch_sparse_odometry", ("--out", "sparse_odom.txt")),
+    ("torch_image_sequence_integration", ("--out-mesh", "integration.ply")),
+)
+
+
+def disk_phase(cam, dev, card, poses, grays, depths) -> dict:
+    """Phase 11: the 16-frame orbit written as a TUM folder, read back, run
+    from disk, checkpointed and resumed, and fed to the dataset CLIs."""
+    import tempfile
+
+    from onepiece_tpu_torch import _build
+    from onepiece_tpu_torch.io import png, tum
+    from onepiece_tpu_torch.io import trajectory as traj
+    from onepiece_tpu_torch.systems.fused_slam import FusedDenseFusion
+    from onepiece_tpu_torch.utils import checkpoint, synthetic
+
+    tools = Path(__file__).resolve().parent / "tools"
+    sys.path.insert(0, str(tools))
+    from _torch_common import chunks, load_frames
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tum_") as root:
+        data = Path(root) / "orbit"
+        # -- (a) write: render on the card, encode on the host --
+        encode_s = []
+
+        def timed_encode(encode):
+            def wrapped(*args, **kwargs):
+                t = time.perf_counter()
+                res = encode(*args, **kwargs)
+                encode_s.append(time.perf_counter() - t)
+                return res
+            return wrapped
+
+        t = time.perf_counter()
+        with patched(png, "encode", timed_encode):
+            gt = tum.write_synthetic_tum(str(data), num_frames=N_FRAMES, camera=cam, device=dev)
+        write_s = time.perf_counter() - t
+        mb = sum(f.stat().st_size for f in data.rglob("*") if f.is_file()) / 1e6
+        pixel_mb = N_FRAMES * cam.height * cam.width * (3 + 2) / 1e6
+        if not np.array_equal(gt, poses):
+            raise AssertionError("write_synthetic_tum: ground truth differs from the orbit's poses")
+        out["encode_ms_per_frame"] = sum(encode_s) * 1e3 / N_FRAMES
+        print(f"disk (a) write_synthetic_tum: {N_FRAMES} frames {cam.width}x{cam.height} in {write_s:.3f} s "
+              f"(render on the card, PNG encode {out['encode_ms_per_frame']:.2f} ms/frame for rgb + depth); folder "
+              f"{mb:.3f} MB for {pixel_mb:.3f} MB of pixels", flush=True)
+
+        # -- (b) read back through the CLIs' loader: bit-equal to the quantised render --
+        args = argparse.Namespace(dataset=str(data), synthetic=0, camera="tum", max_frames=None, scale=1,
+                                  device=str(dev))
+        frames, _, gt_read = load_frames(args)
+        t = time.perf_counter()
+        disk = [(g, d) for _, g, d in frames]
+        out["decode_ms_per_frame"] = (time.perf_counter() - t) * 1e3 / N_FRAMES
+        for i, (g, d) in enumerate(disk):
+            qg, qd = synthetic.quantize_rgbd(grays[i].cpu().numpy(), depths[i].cpu().numpy())
+            if not (np.array_equal(g, qg) and np.array_equal(d, qd)):
+                raise AssertionError(f"disk frame {i}: gray or depth differs from quantize_rgbd of the render "
+                                     f"({int((g != qg).sum())} gray, {int((d != qd).sum())} depth pixels)")
+        if not np.allclose(gt_read, poses, atol=2e-6):
+            raise AssertionError("groundtruth.txt does not read back as the orbit's poses")
+        print(f"disk (b) read back through _torch_common.load_frames: {N_FRAMES} frames bit-equal to "
+              f"quantize_rgbd of the in-memory render; decode {out['decode_ms_per_frame']:.2f} ms/frame "
+              f"(depth + rgb PNGs, luma fold, float32)", flush=True)
+
+        # -- (c) FusedDenseFusion from disk, chunks of DISK_CHUNK, frames decoded in the loop --
+        def from_disk():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            s = FusedDenseFusion(cam, device=dev)
+            for g, d in chunks(load_frames(args)[0], DISK_CHUNK, dev):
+                s.process_chunk(g, d)
+            est, _ = s.finalize()
+            torch.cuda.synchronize()
+            return s, est, (time.perf_counter() - t) * 1e3 / N_FRAMES
+
+        pre = [tuple(torch.from_numpy(np.stack([f[k] for f in disk[i : i + DISK_CHUNK]])).to(dev) for k in (0, 1))
+               for i in range(0, N_FRAMES, DISK_CHUNK)]
+
+        def preloaded():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            s = FusedDenseFusion(cam, device=dev)
+            for g, d in pre:
+                s.process_chunk(g, d)
+            est, _ = s.finalize()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t) * 1e3 / N_FRAMES
+
+        from_disk()  # warm
+        _build.reset_launch_counts()
+        with SyncCounter() as sc:
+            s = FusedDenseFusion(cam, device=dev)
+            for g, d in chunks(load_frames(args)[0], DISK_CHUNK, dev):
+                s.process_chunk(g, d)
+            loop_syncs = sc.count
+        out["disk_launches"] = counted(
+            {"tsdf_integrate": N_FRAMES, "dense_normal_eq": sum(s.iters) * (N_FRAMES - 1), "nn1": 0,
+             "marching_cubes": 0, "hamming": 0, "ba_schur": 0}, "fused loop from disk")
+        est, _ = s.finalize()
+        ate = traj.ate_rmse(est, poses)
+        if not (np.isfinite(est).all() and ate <= MAX_ATE_M and s.overflow == 0 and loop_syncs == 0):
+            raise AssertionError(f"fused loop from disk: ATE {ate} m (<= {MAX_ATE_M}), overflow {s.overflow}, "
+                                 f"host syncs in the frame loop {loop_syncs} (0)")
+        ref = s
+        disk_ms = [from_disk()[2] for _ in range(TIMED_RUNS)]
+        pre_ms = [preloaded() for _ in range(TIMED_RUNS)]
+        out.update(disk_ms_per_frame=float(np.median(disk_ms)), preloaded_ms_per_frame=float(np.median(pre_ms)),
+                   ate_m=ate)
+        print(f"disk (c) FusedDenseFusion from disk in chunks of {DISK_CHUNK}: ATE {ate * 1e3:.4f} mm, overflow "
+              f"{s.overflow}, host syncs in the frame loop {loop_syncs}, launches {out['disk_launches']}; "
+              f"ms/frame over {TIMED_RUNS} runs, frames decoded in the loop: median {out['disk_ms_per_frame']:.3f} (runs "
+              f"{[round(x, 3) for x in disk_ms]}); preloaded on the card: median "
+              f"{out['preloaded_ms_per_frame']:.3f} (runs {[round(x, 3) for x in pre_ms]}) on {card}", flush=True)
+
+        # -- (d) checkpoint after frames 0-7, resume in a fresh instance, frames 8-15 --
+        a = FusedDenseFusion(cam, device=dev)
+        a.process_chunk(*pre[0])
+        path = str(Path(root) / "fused_ckpt.npz")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        checkpoint.save(a, path)
+        save_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        b = checkpoint.load(path, cam, device=dev)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t) * 1e3
+        b.process_chunk(*pre[1])
+        est_b, _ = b.finalize()
+        same = (np.array_equal(est_b, est) and torch.equal(b._state.vox, ref._state.vox)
+                and all(torch.equal(x, y) for x, y in zip(b._state.table, ref._state.table)))
+        if not same:
+            raise AssertionError("resume from the checkpoint: poses, pool or hash table differ from the "
+                                 "uninterrupted run's")
+        out.update(save_ms=save_ms, load_ms=load_ms, checkpoint_mb=Path(path).stat().st_size / 1e6)
+        print(f"disk (d) checkpoint after frame {DISK_CHUNK - 1}, resumed in a fresh instance: poses, pool and "
+              f"hash table bit-equal to the uninterrupted run's; save {save_ms:.1f} ms, load {load_ms:.1f} ms, "
+              f"file {out['checkpoint_mb']:.3f} MB on {card}", flush=True)
+        del a, b, ref, s, pre
+
+        # -- (e) the dataset CLIs, all started together, one card --
+        env = dict(os.environ, PYTHONPATH=str(tools.parent))
+        procs = {name: subprocess.Popen([sys.executable, str(tools / f"{name}.py"), "--dataset", str(data), *extra],
+                                        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for name, extra in DISK_CLIS}
+        t = time.perf_counter()
+        results, failed = {}, []
+        try:
+            for name, proc in procs.items():
+                stdout, stderr = proc.communicate(timeout=DISK_CLI_TIMEOUT_S)
+                m = ATE_LINE.search(stdout)
+                results[name] = float(m.group(2)) if m else None
+                if proc.returncode != 0 or m is None or not np.isfinite(results[name]):
+                    failed.append(f"{name}: exit {proc.returncode}, ATE {results[name]}\n{stdout[-2000:]}"
+                                  f"\n{stderr[-4000:]}")
+        finally:
+            for proc in procs.values():  # stop whatever is still running
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        cli_s = time.perf_counter() - t
+        if failed:
+            raise AssertionError("dataset CLIs failed:\n" + "\n".join(failed))
+        if not results["torch_fused_fusion"] <= MAX_ATE_M:
+            raise AssertionError(f"torch_fused_fusion --dataset: ATE {results['torch_fused_fusion']} m > {MAX_ATE_M}")
+        if not (Path(root) / "fused.npz").exists():
+            raise AssertionError("torch_fused_fusion --checkpoint wrote no file")
+        out["cli_ate_m"] = results
+        print(f"disk (e) {len(procs)} dataset CLIs on the folder, started together: all exit 0 in {cli_s:.1f} s; "
+              f"ATE (m) {results}", flush=True)
+    return out
+
+
 def main() -> int:
     # ---- 1. the card ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1444,9 +1645,13 @@ def main() -> int:
     phase10 = ba_phase(cam, dev, card, poses, grays, depths, phase9)
     results["ba_schur"] = phase10["kernel"]
 
+    # ---- 11. real input and state: the orbit from disk, checkpoint and resume, the dataset CLIs ----
+    disk_phase(cam, dev, card, poses, grays, depths)
+
     # the hamming launches are phase 9's counted runs, the ba_schur launches
-    # phase 10's; the other four keep the counts of phases 5, 7 and 8. No
-    # single PyTorch call computes any of the six functions.
+    # phase 10's; the other four keep the counts of phases 5, 7 and 8 (phase
+    # 11 prints its own). No single PyTorch call computes any of the six
+    # functions.
     counted_in = {_build.HAMMING.name: phase9["launches"], _build.BA_SCHUR.name: phase10["launches"]}
     kernels = [
         dict(name=k.name, route="cuda", source=k.source, replaces=k.replaces,

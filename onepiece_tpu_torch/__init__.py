@@ -9,7 +9,9 @@ version on a CPU tensor. There is no fallback from one to the other.
 
 Layout (the slices so far: the dense fusion loop `systems/fused_slam.py`,
 DenseSlam `systems/dense_slam.py`, meshing with the pipelined loop
-`systems/pipeline.py`, and sparse FBAFusion `systems/fused_sparse.py`):
+`systems/pipeline.py`, sparse FBAFusion `systems/fused_sparse.py`, bundle
+adjustment `systems/fused_ba.py`, and real input and state `io/tum.py`,
+`io/png.py`, `utils/checkpoint.py`):
   geometry/      SE(3) math, pinhole camera (+ presets), Kabsch and normal
                  fitting, fixed-capacity point clouds
   ops/           image ops, dense Gauss-Newton steps (kernel), TSDF keys and
@@ -22,10 +24,13 @@ DenseSlam `systems/dense_slam.py`, meshing with the pipelined loop
   integration/   device block hash, TSDFVolume (allocate, integrate,
                  extract_mesh), volume_ops (save / load / merge / transform)
   registration/  ICP, FPFH, global (feature + RANSAC) registration
-  optimization/  pose-graph Gauss-Newton
-  systems/       FusedDenseFusion, DenseSlam, PipelinedDenseFusion, FusedFBASlam
-  io/            trajectory IO, ATE / RPE, PLY meshes
-  utils/         synthetic SDF renderer with exact ground-truth poses
+  optimization/  pose-graph Gauss-Newton, bundle adjustment (Schur kernel)
+  systems/       FusedDenseFusion, DenseSlam, PipelinedDenseFusion, FusedFBASlam,
+                 FusedBASlam
+  io/            trajectory IO, ATE / RPE, PLY meshes, PNG codec (zlib + numpy),
+                 TUM RGB-D sequences
+  utils/         synthetic SDF renderer with exact ground-truth poses;
+                 checkpoint / resume of the device-resident systems
 """
 
 import torch

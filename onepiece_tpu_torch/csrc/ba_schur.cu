@@ -46,7 +46,7 @@
 //     the 2 or 3 residual rows has constant bounds, so nothing spills to
 //     local memory), write W_o, U_o and g_o, and reduce V and b_p with an
 //     xor butterfly (every lane ends with the same sum); each lane inverts
-//     the damped V by cofactors (no LU, no host check) and writes Y_o from
+//     the damped V by LU with partial pivoting (no host check) and writes Y_o from
 //     the W_o it kept in registers. A point with no observation damps to
 //     1e-9 I, as in the dense form, and its step is 0.
 //   - Launch B (ba_blocks_kernel), one 512-thread CTA per frame f of the
@@ -253,21 +253,57 @@ __device__ void write_Y(const float (&W)[18], const float Vi[3][3], float* __res
     store_row(rec + kY, Y);
 }
 
-// 3x3 inverse by cofactors (the plain version's `inv3`, operation for operation)
+// Swaps rows i and j of a and of b where `swap` holds.
+__device__ void swap_rows(float a[3][3], float b[3][3], int i, int j, bool swap) {
+    for (int c = 0; c < 3; ++c) {
+        const float ai = a[i][c], bi = b[i][c];
+        a[i][c] = swap ? a[j][c] : ai;
+        a[j][c] = swap ? ai : a[j][c];
+        b[i][c] = swap ? b[j][c] : bi;
+        b[j][c] = swap ? bi : b[j][c];
+    }
+}
+
+// 3x3 inverse by a LAPACK-style LU with partial pivoting, then forward and
+// back substitution against the permuted identity (getrf + getrs): the plain
+// version's `inv3`, operation for operation. A pivot is the first largest |entry| of its column.
 __device__ void inv3(const float m[3][3], float out[3][3]) {
-    const float c00 = m[1][1] * m[2][2] - m[1][2] * m[2][1];
-    const float c01 = m[1][2] * m[2][0] - m[1][0] * m[2][2];
-    const float c02 = m[1][0] * m[2][1] - m[1][1] * m[2][0];
-    const float det = (m[0][0] * c00 + m[0][1] * c01) + m[0][2] * c02;
-    out[0][0] = c00 / det;
-    out[0][1] = (m[0][2] * m[2][1] - m[0][1] * m[2][2]) / det;
-    out[0][2] = (m[0][1] * m[1][2] - m[0][2] * m[1][1]) / det;
-    out[1][0] = c01 / det;
-    out[1][1] = (m[0][0] * m[2][2] - m[0][2] * m[2][0]) / det;
-    out[1][2] = (m[0][2] * m[1][0] - m[0][0] * m[1][2]) / det;
-    out[2][0] = c02 / det;
-    out[2][1] = (m[0][1] * m[2][0] - m[0][0] * m[2][1]) / det;
-    out[2][2] = (m[0][0] * m[1][1] - m[0][1] * m[1][0]) / det;
+    float a[3][3], b[3][3];
+    for (int i = 0; i < 3; ++i) {
+        for (int j = 0; j < 3; ++j) {
+            a[i][j] = m[i][j];
+            b[i][j] = i == j ? 1.0f : 0.0f;
+        }
+    }
+    const bool take1 = fabsf(a[1][0]) > fabsf(a[0][0]);
+    const bool take2 = fabsf(a[2][0]) > (take1 ? fabsf(a[1][0]) : fabsf(a[0][0]));
+    swap_rows(a, b, 0, 2, take2);
+    swap_rows(a, b, 0, 1, take1 && !take2);
+    const float r = 1.0f / a[0][0];  // the first column scaled by one reciprocal, as getf2 scales it
+    const float l1 = a[1][0] * r;
+    const float l2 = a[2][0] * r;
+    a[1][1] = a[1][1] - l1 * a[0][1];
+    a[1][2] = a[1][2] - l1 * a[0][2];
+    a[2][1] = a[2][1] - l2 * a[0][1];
+    a[2][2] = a[2][2] - l2 * a[0][2];
+    a[1][0] = l1;
+    a[2][0] = l2;
+    swap_rows(a, b, 1, 2, fabsf(a[2][1]) > fabsf(a[1][1]));
+    const float l21 = a[2][1] / a[1][1];
+    const float u22 = a[2][2] - l21 * a[1][2];
+    for (int j = 0; j < 3; ++j) {
+        float y0 = b[0][j];
+        float y1 = b[1][j] - y0 * a[1][0];
+        const float y2 = (b[2][j] - y0 * a[2][0]) - y1 * l21;
+        const float x2 = y2 / u22;
+        y1 = y1 - x2 * a[1][2];
+        y0 = y0 - x2 * a[0][2];
+        const float x1 = y1 / a[1][1];
+        y0 = y0 - x1 * a[0][1];
+        out[0][j] = y0 / a[0][0];
+        out[1][j] = x1;
+        out[2][j] = x2;
+    }
 }
 
 // xor butterfly over the warp: a + b == b + a, so every lane ends with the same N sums

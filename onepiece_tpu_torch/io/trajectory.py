@@ -1,5 +1,6 @@
-"""Trajectory IO and evaluation (numpy). Copy of the jax-free matrix
-trajectory IO and evaluation helpers of `onepiece_tpu/io/trajectory.py`."""
+"""Trajectory IO and evaluation (numpy). Copy of the jax-free trajectory
+IO (16-float matrix rows and TUM's `t tx ty tz qx qy qz qw` lines) and
+evaluation helpers of `onepiece_tpu/io/trajectory.py`."""
 
 from __future__ import annotations
 
@@ -17,6 +18,30 @@ def read_matrix_trajectory(path: str) -> np.ndarray:
     if flat.ndim == 1:
         flat = flat[None]
     return flat.reshape(-1, 4, 4)
+
+
+def write_tum_trajectory(path: str, timestamps: np.ndarray, poses: np.ndarray) -> None:
+    """TUM format: `t tx ty tz qx qy qz qw` per line."""
+    from scipy.spatial.transform import Rotation
+
+    with open(path, "w") as f:
+        for ts, T in zip(timestamps, poses):
+            q = Rotation.from_matrix(T[:3, :3]).as_quat()  # x y z w
+            t = T[:3, 3]
+            f.write(f"{ts:.6f} {t[0]:.6f} {t[1]:.6f} {t[2]:.6f} {q[0]:.6f} {q[1]:.6f} {q[2]:.6f} {q[3]:.6f}\n")
+
+
+def read_tum_trajectory(path: str) -> tuple[np.ndarray, np.ndarray]:
+    """Returns (timestamps (N,), poses (N, 4, 4))."""
+    from scipy.spatial.transform import Rotation
+
+    rows = np.loadtxt(path, comments="#")
+    if rows.ndim == 1:
+        rows = rows[None]
+    poses = np.tile(np.eye(4), (len(rows), 1, 1))
+    poses[:, :3, :3] = Rotation.from_quat(rows[:, 4:8]).as_matrix()
+    poses[:, :3, 3] = rows[:, 1:4]
+    return rows[:, 0], poses
 
 
 def align_umeyama(est: np.ndarray, gt: np.ndarray, with_scale: bool = False) -> np.ndarray:

@@ -2,7 +2,7 @@
 
 Port of `onepiece_tpu/odometry/sparse.py` (`SparseFrame`,
 `SparseTrackingResult`, `TrackingSummary`, `extract_sparse_frame`,
-`extract_sparse_frames_batch`, `_match_and_estimate`,
+`extract_sparse_frames_batch`, `_match_and_estimate`, `sparse_tracking`,
 `_track_summary_inner`, `se3_inverse`): FAST/BRIEF features backprojected
 with the depth, descriptor matching with the ratio test, five RanSaPC
 pairwise-consistency rounds, depth-normalised RANSAC, then a pose-guided
@@ -162,6 +162,21 @@ def _match_and_estimate(
         nin >= MIN_INLIERS, src_pts, torch.where(use2, dst2, dst_pts),
         torch.where(use2, res2.inliers, res1.inliers), torch.where(use2, idx2, idx),
     )
+
+
+def sparse_tracking(
+    source: SparseFrame,
+    target: SparseFrame,
+    camera: PinholeCamera,
+    generator: torch.Generator | None = None,
+) -> SparseTrackingResult:
+    """Estimate T_ts mapping source-frame points into the target frame
+    (the reference's convention: RANSAC over matched 3-D pairs). Random
+    draws come from `generator`, or from a generator seeded 0 on the
+    frames' device."""
+    if generator is None:
+        generator = torch.Generator(device=source.points.device).manual_seed(0)
+    return _match_and_estimate(generator, source, target, camera)
 
 
 def _track_summary_inner(

@@ -25,9 +25,10 @@ observation set is fixed while it runs). On CPU tensors the plain versions
 run: JAX's dense formulation, literally, with the sequential `index_add_`
 of the CPU.
 
-V is inverted by cofactors in both versions (the JAX package calls
-`jnp.linalg.inv`, an LU): the kernel and its plain version then differ only
-in the order of their sums.
+V is inverted by a LAPACK-style LU with partial pivoting in both versions,
+written out element by element (`inv3`), where the JAX package calls
+`jnp.linalg.inv`: the kernel and its plain version then differ only in the
+order of their sums.
 """
 
 from __future__ import annotations
@@ -131,19 +132,45 @@ def damp(M: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
 
 
 def inv3(M: torch.Tensor) -> torch.Tensor:
-    """Inverse of a batch of 3x3 matrices by cofactors (the kernel's formula,
-    operation for operation)."""
-    m = [[M[:, i, j] for j in range(3)] for i in range(3)]
-    c00 = m[1][1] * m[2][2] - m[1][2] * m[2][1]
-    c01 = m[1][2] * m[2][0] - m[1][0] * m[2][2]
-    c02 = m[1][0] * m[2][1] - m[1][1] * m[2][0]
-    det = m[0][0] * c00 + m[0][1] * c01 + m[0][2] * c02
-    rows = [
-        [c00, m[0][2] * m[2][1] - m[0][1] * m[2][2], m[0][1] * m[1][2] - m[0][2] * m[1][1]],
-        [c01, m[0][0] * m[2][2] - m[0][2] * m[2][0], m[0][2] * m[1][0] - m[0][0] * m[1][2]],
-        [c02, m[0][1] * m[2][0] - m[0][0] * m[2][1], m[0][0] * m[1][1] - m[0][1] * m[1][0]],
-    ]
-    return torch.stack([torch.stack([x / det for x in row], -1) for row in rows], -2)
+    """Inverse of a batch of 3x3 matrices by a LAPACK-style LU with partial
+    pivoting (getrf, then getrs against the identity), written out element
+    by element: the kernel's `inv3`, operation for operation. A pivot is the
+    first largest |entry| of its column; rows swap as one transposition."""
+    a = [[M[:, i, j] for j in range(3)] for i in range(3)]
+    one, zero = torch.ones_like(a[0][0]), torch.zeros_like(a[0][0])
+    b = [[one if i == j else zero for j in range(3)] for i in range(3)]  # the identity, rows permuted as a's
+
+    def swap_rows(i: int, j: int, swap: torch.Tensor) -> None:
+        for m in (a, b):
+            m[i], m[j] = ([torch.where(swap, y, x) for x, y in zip(m[i], m[j])],
+                          [torch.where(swap, x, y) for x, y in zip(m[i], m[j])])
+
+    take1 = torch.abs(a[1][0]) > torch.abs(a[0][0])
+    take2 = torch.abs(a[2][0]) > torch.where(take1, torch.abs(a[1][0]), torch.abs(a[0][0]))
+    swap_rows(0, 2, take2)
+    swap_rows(0, 1, take1 & ~take2)
+    r = 1 / a[0][0]  # the first column scaled by one reciprocal, as getf2 scales it
+    l1 = a[1][0] * r
+    l2 = a[2][0] * r
+    a[1][1], a[1][2] = a[1][1] - l1 * a[0][1], a[1][2] - l1 * a[0][2]
+    a[2][1], a[2][2] = a[2][1] - l2 * a[0][1], a[2][2] - l2 * a[0][2]
+    a[1][0], a[2][0] = l1, l2
+    swap_rows(1, 2, torch.abs(a[2][1]) > torch.abs(a[1][1]))
+    l21 = a[2][1] / a[1][1]
+    u22 = a[2][2] - l21 * a[1][2]
+    cols = []
+    for j in range(3):
+        # L y = P e_j (unit lower), then U x = y (back substitution, LAPACK's column order)
+        y0 = b[0][j]
+        y1 = b[1][j] - y0 * a[1][0]
+        y2 = (b[2][j] - y0 * a[2][0]) - y1 * l21
+        x2 = y2 / u22
+        y1 = y1 - x2 * a[1][2]
+        y0 = y0 - x2 * a[0][2]
+        x1 = y1 / a[1][1]
+        y0 = y0 - x1 * a[0][1]
+        cols.append(torch.stack([y0 / a[0][0], x1, x2], -1))
+    return torch.stack(cols, -1)
 
 
 def build_lists(frame, point, valid, num_frames: int, num_points: int) -> ObsLists:

@@ -255,6 +255,8 @@ class FusedFBASlam:
         self.host_reads = 0  # the reads this class makes (the SVDs' waits not included)
         self._anchors: list[int] = []
         self._Trels: list[np.ndarray] = []
+        self._ok: list[bool] = []
+        self._iskf: list[bool] = []
         self._kf_pose = np.tile(np.eye(4, dtype=np.float32), (self.kf_capacity, 1, 1))
         self._rng = np.random.default_rng(0)
 
@@ -492,6 +494,8 @@ class FusedFBASlam:
         for i in range(k):
             self._anchors.append(int(h.anchor[i]))
             self._Trels.append(h.T_rel[i].astype(np.float32))
+            self._ok.append(bool(h.ok[i]))
+            self._iskf.append(bool(h.is_kf[i]))
         info = {
             "frames": self.frame_count, "keyframes": self.num_kf, "edges": self.num_edges,
             "lc_pairs": self.lc_pairs, "lc_edges": int(h.lc_edges),

@@ -14,8 +14,8 @@ Tolerances, each with its reason:
 - observation models: 1e-5 relative (the same float32 operations; einsum
   sums in another order);
 - one step of the RGB-D model: new poses and points within 1e-4 (sums in
-  another order, the 3x3 point blocks inverted by cofactors here and by LU
-  in JAX, the LU of the reduced system by another library); of the 2-D
+  another order, the 3x3 point blocks inverted by a written-out pivoted LU
+  here and by LAPACK's in JAX, the LU of the reduced system by another library); of the 2-D
   model: see `test_ba_step_masked_matches_jax_2d`;
 - the reduced system against a float64 assembly written in the test: see
   `test_plain_reduced_system_matches_float64_assembly`;
@@ -180,10 +180,10 @@ def test_plain_reduced_system_matches_float64_assembly(prob, model, dtype):
     """S = U - W V^-1 W^T and rhs_c = b_c - W V^-1 b_p, written out in float64
     from the port's residuals and Jacobians, one observation at a time. The
     plain version run in float64 gives the same system to 1e-10 (the
-    formula; cofactors against LU); in float32 the RGB-D model's to 1e-5 (rounding of float32
-    sums), the 2-D model's to 1e-4: a point seen from one or two cameras
+    formula; the written-out pivoted LU against LAPACK's); in float32 the RGB-D model's to 1e-5
+    (rounding of float32 sums), the 2-D model's to 1e-4: a point seen from one or two cameras
     has a 2-D block V near rank 2 (condition ~3e4 after damping), whose
-    float32 cofactor inverse is good to ~2e-3 in its weak direction, and
+    float32 inverse is good to ~2e-3 in its weak direction, and
     S, which W projects onto the others, to ~4e-5."""
     t = {k: torch.from_numpy(v.astype(dtype) if v.dtype == np.float32 else v) for k, v in prob.items()}
     pc = t["pc_obs"] if model == "3d" else None
@@ -371,7 +371,8 @@ def test_schur_errors_tool_on_cpu(capsys):
     """`tools/torch_ba_schur_errors.py` on the CPU: a small card-test case
     (no kernel row; the plain version on the device is the CPU's; lam = 1
     halves the RGB-D model's V^-1), then the 2-D step on this file's
-    problem in its four variants."""
+    problem in its four variants, then the shares of V blocks whose factors
+    and inverse equal the library's."""
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
     import torch_ba_schur_errors as tool
 
@@ -382,9 +383,13 @@ def test_schur_errors_tool_on_cpu(capsys):
     assert abs(rows[1]["moved"]["Vinv"] - 0.5) < 0.01
     assert tool.main(["--device", "cpu", "--bundle-problem"]) == 0
     rows = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
-    assert [(r["inverse"], r["solve"]) for r in rows] == [("cofactor", "float32"), ("cofactor", "float64"),
+    assert [(r["inverse"], r["solve"]) for r in rows] == [("pivoted", "float32"), ("pivoted", "float64"),
                                                            ("lu", "float32"), ("lu", "float64")]
     assert all(0 < r["poses"] < 1e-2 and 0 < r["points"] < 1e-2 for r in rows)
+    assert tool.main(["--device", "cpu", "--models", "3d", "--cases", "one_observation", "--library-match"]) == 0
+    (row,) = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
+    shares = {k: v for k, v in row.items() if k.startswith(("lu_equals", "inv3_equals"))}
+    assert row["blocks"] > 0 and len(shares) == 5 and all(0 <= v <= 1 for v in shares.values())
 
 
 def test_compare_ba_schur_tool_on_cpu(capsys):

@@ -34,6 +34,17 @@ from test_torch_fused_sparse import CAM, JCAM160, seq12  # noqa: F401  (the 12-f
 SETTINGS = dict(max_keypoints=500, keyframe_disparity=10.0, pt_capacity=2048, obs_capacity=4096, ba_iters=6)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while the module runs: the test workers share the
+    host's cores, and thousands of small operations stall each other's
+    thread pools."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def seeded_edges(seed: int = 4, n_cap: int = 6, f: int = 40, c: int = 16, e_cap: int = 6, num: int = 4):
     """Edges 0-1, 1-2, 0-2, 2-3 (num = 4) and a fifth past the count, each
     with distinct source keypoints and destination keypoints drawn from a

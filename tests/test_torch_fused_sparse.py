@@ -27,6 +27,17 @@ JCAM160 = JCAM.next_pyramid_level().next_pyramid_level()
 SETTINGS = dict(max_keypoints=500, keyframe_disparity=10.0)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while the module runs: the test workers share the
+    host's cores, and thousands of small operations stall each other's
+    thread pools."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def seq12():
     poses = synthetic.orbit_trajectory(12)

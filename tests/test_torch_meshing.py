@@ -63,6 +63,17 @@ REPO = Path(__file__).resolve().parent.parent
 VOX, TRUNC = 0.0125, 0.1
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while the module runs: the test workers share the
+    host's cores, and thousands of small operations stall each other's
+    thread pools."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _t(x):
     return torch.from_numpy(np.array(x))
 
@@ -492,6 +503,7 @@ _NO_JAX = (
 
 def _run_without_jax(code: str, cwd) -> subprocess.CompletedProcess:
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"  # the subprocess's torch, pinned as this module's is
     return subprocess.run([sys.executable, "-c", _NO_JAX + code], cwd=cwd, env=env, capture_output=True,
                           text=True, timeout=240)
 

@@ -7,9 +7,23 @@ import json
 import sys
 from pathlib import Path
 
+import pytest
+import torch
+
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
 
 import profile_torch_slice  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while the module runs: the test workers share the
+    host's cores, and thousands of small operations stall each other's
+    thread pools."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def test_profile_tool_reports_every_stage_on_cpu(capsys):

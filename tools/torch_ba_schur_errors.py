@@ -18,15 +18,23 @@ observed points and dp (the back-substitution of a fixed camera step) for:
   - `plain`: the plain version on the device;
   - `plain_cpu`: the plain version on the CPU (the two largest-F cases are
     left out there: their dense systems are 0.4 and 0.6 GB);
-  - `plain_cpu_lu`: the same with V inverted by LU (`torch.linalg.inv`) in
-    place of the cofactors both versions use;
+  - `plain_cpu_lu`: the same with V inverted by the library's LU
+    (`torch.linalg.inv`) in place of the pivoted elimination written out
+    in both versions (`ops/ba_schur.inv3`);
 
 x64 being the plain version run in float64, and `moved`: how far lam moves
 the plain system from lam = 0. With `--bundle-problem` it prints instead,
 for `tests/test_torch_bundle.py`'s problem (which imports the JAX
 package), how far one float32 2-D `_ba_step_masked` lies from the float64
-step with the cofactor inverse, with the LU inverse, and with either and
-the solve made in float64.
+step with the written-out pivoted inverse, with the library's LU inverse,
+and with either and the solve made in float64. With `--library-match` it
+prints, for the damped V blocks of the observed points of each case (at the
+first lam), the share whose pivoted LU factors equal the library's
+(`torch.linalg.lu_factor`) bit for bit, with the first column's multipliers
+made by division or by one reciprocal of the pivot (as `inv3` does), and
+each multiply-subtract rounded twice (as `inv3` does) or once (a fused
+multiply-add, emulated in float64), and the share of `inv3` inverses equal
+to `torch.linalg.inv`'s.
 """
 
 from __future__ import annotations
@@ -54,13 +62,69 @@ def rel(a: torch.Tensor, b: torch.Tensor) -> float:
 
 @contextlib.contextmanager
 def lu_inverse():
-    """The plain versions invert V by LU while the block runs."""
-    cofactors = ba_schur.inv3
+    """The plain versions invert V by the library's LU while the block runs."""
+    pivoted = ba_schur.inv3
     ba_schur.inv3 = torch.linalg.inv
     try:
         yield
     finally:
-        ba_schur.inv3 = cofactors
+        ba_schur.inv3 = pivoted
+
+
+def lu3(M: torch.Tensor, reciprocal: bool, fused: bool) -> torch.Tensor:
+    """`ba_schur.inv3`'s pivoted factors of the 3x3 blocks M, packed as
+    getrf packs them (rows in pivot order, L below the diagonal), with the
+    first column's multipliers made by one reciprocal of the pivot if
+    `reciprocal`, and each c - a b rounded once if `fused`."""
+    def fms(c, a, b):
+        return (c.double() - a.double() * b.double()).float() if fused else c - a * b
+
+    a = [[M[:, i, j] for j in range(3)] for i in range(3)]
+
+    def swap_rows(i: int, j: int, swap: torch.Tensor) -> None:
+        a[i], a[j] = ([torch.where(swap, y, x) for x, y in zip(a[i], a[j])],
+                      [torch.where(swap, x, y) for x, y in zip(a[i], a[j])])
+
+    take1 = a[1][0].abs() > a[0][0].abs()
+    take2 = a[2][0].abs() > torch.where(take1, a[1][0].abs(), a[0][0].abs())
+    swap_rows(0, 2, take2)
+    swap_rows(0, 1, take1 & ~take2)
+    l1, l2 = (a[1][0] * (1 / a[0][0]), a[2][0] * (1 / a[0][0])) if reciprocal else (a[1][0] / a[0][0],
+                                                                                      a[2][0] / a[0][0])
+    a[1] = [l1, fms(a[1][1], l1, a[0][1]), fms(a[1][2], l1, a[0][2])]
+    a[2] = [l2, fms(a[2][1], l2, a[0][1]), fms(a[2][2], l2, a[0][2])]
+    swap_rows(1, 2, a[2][1].abs() > a[1][1].abs())
+    a[2][1] = a[2][1] / a[1][1]
+    a[2][2] = fms(a[2][2], a[2][1], a[1][2])
+    return torch.stack([torch.stack(r, -1) for r in a], -2)
+
+
+def library_match_rows(cases, models, lam: float) -> list[dict]:
+    from test_torch_cuda import _ba_problem
+
+    rows = []
+    for model in models:
+        for case in cases:
+            args, _ = _ba_problem(case, model, "cpu")
+            blocks = []
+            pivoted = ba_schur.inv3
+            ba_schur.inv3 = lambda M: blocks.append(M) or pivoted(M)  # noqa: E731
+            try:
+                ba_schur.reduced_system_reference(*on(args, "cpu", lam))
+            finally:
+                ba_schur.inv3 = pivoted
+            lists = ba_schur.build_lists(args[2], args[3], args[5], args[0].shape[0], args[1].shape[0])
+            V = blocks[0][lists.point_ptr.diff() > 0]
+            lu_lib = torch.linalg.lu_factor(V)[0]
+            row = dict(model=model, case=case, lam=lam, blocks=V.shape[0],
+                       inv3_equals_library_inv=float((ba_schur.inv3(V) == torch.linalg.inv(V)).all((1, 2))
+                                                     .double().mean()))
+            for reciprocal in (False, True):
+                for fused in (False, True):
+                    same = (lu3(V, reciprocal, fused) == lu_lib).all((1, 2)).double().mean()
+                    row[f"lu_equals_library{'_reciprocal' * reciprocal}{'_fused' * fused}"] = float(same)
+            rows.append(row)
+    return rows
 
 
 def on(args, device, lam, dtype=None):
@@ -136,7 +200,7 @@ def bundle_problem_rows() -> list[dict]:
 
     x = step(np.float64)
     rows = []
-    for inverse in ("cofactor", "lu"):
+    for inverse in ("pivoted", "lu"):
         for solve_in in ("float32", "float64"):
             with lu_inverse() if inverse == "lu" else contextlib.nullcontext():
                 torch.linalg.solve_ex = solve64 if solve_in == "float64" else solve
@@ -158,9 +222,15 @@ def main(argv=None) -> int:
                                                     "f2048_few_live"])
     ap.add_argument("--lams", nargs="+", type=float, default=[3e-5, 3e-5 * 2**8, 1.0])
     ap.add_argument("--bundle-problem", action="store_true")
+    ap.add_argument("--library-match", action="store_true")
     args = ap.parse_args(argv)
-    rows = bundle_problem_rows() if args.bundle_problem else [
-        r for m in args.models for c in args.cases for r in case_rows(c, m, args.device, args.lams)]
+    if args.bundle_problem:
+        rows = bundle_problem_rows()
+    elif args.library_match:
+        rows = library_match_rows([c for c in args.cases if c not in ("max_frames", "f2048_few_live")],
+                                  args.models, args.lams[0])
+    else:
+        rows = [r for m in args.models for c in args.cases for r in case_rows(c, m, args.device, args.lams)]
     for r in rows:
         print(json.dumps(r), flush=True)
     return 0

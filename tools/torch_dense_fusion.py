@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """DenseFusion on the PyTorch + CUDA port: DenseSlam, then a post-hoc TSDF mesh.
 
+    python3 tools/torch_dense_fusion.py --dataset DIR                       # a TUM folder, on the card
     python3 tools/torch_dense_fusion.py --synthetic 150                     # 640x480, on the card
     python3 tools/torch_dense_fusion.py --synthetic 4 --scale 8 --device cpu
 
-The counterpart of `tools/dense_fusion.py` for `onepiece_tpu_torch`: renders
-N frames of the synthetic orbit (the TUM reader is not ported yet), runs
-`DenseSlam` (dense VO, submap ICP, loop closure, pose graph) over them,
-then integrates every `--integrate-stride`-th frame, bilateral-filtered, into
-a `TSDFVolume(voxel, truncation = 5 voxel)` at the optimised poses (the TSDF
+The counterpart of `tools/dense_fusion.py` for `onepiece_tpu_torch`: reads
+a TUM folder or renders N frames of the synthetic orbit, runs `DenseSlam`
+(dense VO, submap ICP, loop closure, pose graph) over them, then integrates
+every `--integrate-stride`-th frame, bilateral-filtered, into a
+`TSDFVolume(voxel, truncation = 5 voxel)` at the optimised poses (the TSDF
 kernel), meshes it (the marching-cubes kernel) and writes the trajectory and
 the PLY. Imports nothing of the JAX package.
 """
@@ -22,19 +23,15 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-import numpy as np
+from _torch_common import add_dataset_args, fuse, keeping, load_frames, print_ate, write_mesh
 
-from torch_fused_fusion import add_synthetic_args, synthetic_frames, write_mesh
-
-from onepiece_tpu_torch.integration.blocks import TSDFVolume
 from onepiece_tpu_torch.io import trajectory as traj
-from onepiece_tpu_torch.ops.image import bilateral_filter
 from onepiece_tpu_torch.systems.dense_slam import DenseSlam
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    add_synthetic_args(ap)
+    add_dataset_args(ap)
     ap.add_argument("--out-mesh", type=str, default="mesh.ply")
     ap.add_argument("--out-traj", type=str, default="trajectory.txt")
     ap.add_argument("--voxel", type=float, default=0.02)
@@ -42,10 +39,11 @@ def main() -> None:
     ap.add_argument("--submap-size", type=int, default=50)
     args = ap.parse_args()
 
-    cam, gt, grays, depths = synthetic_frames(args)
+    frames, cam, gt = load_frames(args)
     slam = DenseSlam(cam, args.device, submap_size=args.submap_size)
+    kept: list = []
     t0 = time.perf_counter()
-    for gray, depth in zip(grays, depths):
+    for _, gray, depth in keeping(frames, 0, args.integrate_stride, kept):
         info = slam.update_frame(gray, depth)
         if info["frame"] % 10 == 0:
             print(f"frame {info['frame']}: rmse {info['rmse']:.5f} submap {info['submap']}")
@@ -54,15 +52,11 @@ def main() -> None:
     print(f"slam: {n} frames in {dt:.2f}s ({n / dt:.2f} fps)")
     poses = slam.trajectory()
     traj.write_matrix_trajectory(args.out_traj, poses)
-    print(f"ATE RMSE: {traj.ate_rmse(poses, np.asarray(gt)[: len(poses)]):.5f} m")
+    print_ate(poses, gt)
 
     # post-hoc reconstruction at the optimised poses
-    vol = TSDFVolume(voxel_size=args.voxel, truncation=args.voxel * 5, device=args.device)
-    kept = range(0, n, args.integrate_stride)
     t1 = time.perf_counter()
-    for fidx in kept:
-        gray = grays[fidx]
-        vol.integrate(bilateral_filter(depths[fidx]), gray[..., None].expand(-1, -1, 3), poses[fidx], cam)
+    vol = fuse(poses, kept, cam, args.voxel, args.device)
     print(f"integrated {len(kept)} frames in {time.perf_counter() - t1:.2f}s; blocks {vol.num_active}")
     nv, nf, secs = write_mesh(vol, args.out_mesh)
     print(f"mesh: {nv} verts {nf} faces in {secs:.2f}s -> {args.out_mesh}")

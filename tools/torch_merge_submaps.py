@@ -19,7 +19,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from torch_fused_fusion import write_mesh
+from _torch_common import write_mesh
 
 from onepiece_tpu_torch.integration import volume_ops
 from onepiece_tpu_torch.io import trajectory as traj
