@@ -96,7 +96,7 @@ Phases, in order; any failure exits non-zero before the final `ok` line:
      folder read back through `tools/_torch_common.load_frames`, each gray
      and depth bit-equal to `quantize_rgbd` of the in-memory render of
      phase 5 (decode ms per frame); (c) `FusedDenseFusion` from disk in
-     chunks of 8, the frames decoded in the loop as a CLI runs them and
+     chunks of 8, the frames decoded by the prefetch ring as a CLI runs them and
      uploaded through pinned memory: ATE <= 2 mm, no block overflow, no host
      sync in the frame loop, the TSDF and GN-step launches counted; ms per
      frame over 5 runs beside the same frames preloaded on the card; (d)
@@ -107,6 +107,32 @@ Phases, in order; any failure exits non-zero before the final `ok` line:
      `torch_dense_odometry`, `torch_sparse_odometry` and
      `torch_image_sequence_integration` on the folder, started together:
      each exits 0 with a finite ATE, the fused one's <= 2 mm
+ 12. the prefetch ring and the tools of the real-input slice: (a) the
+     100-frame 640x480 `loop_trajectory` written as a TUM folder; every
+     frame through the ring (`io/native_loader.py`) bit-equal to the eager
+     decode, gray and rgb, at the JAX defaults (2 workers, 4 slots) and at
+     the port's; decode ms per frame of each and the time to the first
+     frame, beside os.cpu_count(); (b) `FusedDenseFusion` on that folder in
+     chunks of 8 through the ring (as `torch_fused_fusion --dataset`):
+     ATE <= 10 mm, no overflow, no host sync in the frame loop, TSDF and
+     GN-step launches counted; ms per frame, medians of 5 in turns after a
+     warm run, through the ring, with eager decode (phase 11's way) and
+     preloaded on the card; (c) phase 11's folder with frame 4's depth PNG
+     truncated: the ring raises ValueError at frame 4 naming the file and
+     leaves no worker process; (d) `tools/torch_long_run.py` at 200 frames:
+     its checks, a pool growth and a loop-closure edge, fps, ATE, warm-up
+     and steady seconds and the launches (Hamming among them); (e)
+     `tools/torch_ba_test.py`: full BA in the 2-D model (rms <= 2x the
+     injected pixel noise, finite pose error, 2 BA Schur launches an LM
+     step), the BA Schur kernel against its plain version on every step's
+     recorded inputs within KERNEL2_TOL, one step timed with its bound;
+     the pose-graph mode; (f) `torch_icp_test --synthetic` point and plane
+     (|T - T_gt| <= 1e-4, 31 nn1 launches a run), `torch_convert_tsdf` on
+     phase 5's gray volume (npz -> cube -> npz bit-equal on the observed
+     voxels, cube -> PLY through one marching-cubes launch),
+     `torch_convert_to_pcd` and `torch_transfer_labels` on phase 11's
+     folder, `torch_acquire_live_data` replaying it at 30 Hz (wall time >=
+     15 / 30 s)
 Prints one JSON line of per-kernel results (launches: the counted runs of
 phases 5 (gray and rgb), 7, 8 and 11 together, for hamming phase 9's, for
 ba_schur phase 10's; ms: the kernels' device time per
@@ -122,7 +148,8 @@ roofline_share = bound_ms / ms; the hamming entry adds the windowed, the
 all-valid and the MILD times, bounds and shares, and the launch floor; the
 ba_schur entry is one LM step's kernels at the orbit's BA call and adds the
 loop's (loop_*), the loop's at 2,048 keyframe slots (wide_*), ms/frame and
-ms a chunk of the linker and the LM loop), the card line, then
+ms a chunk of the linker and the LM loop, and phase 12's step of
+`torch_ba_test` in the 2-D model (ba_test_2d_*)), the card line, then
 {"ok": true, "device": {...}} as the last line.
 """
 
@@ -135,6 +162,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -1151,11 +1179,10 @@ DISK_CLIS = (  # (tool, arguments besides --dataset; outputs go to the run's fol
 )
 
 
-def disk_phase(cam, dev, card, poses, grays, depths) -> dict:
-    """Phase 11: the 16-frame orbit written as a TUM folder, read back, run
-    from disk, checkpointed and resumed, and fed to the dataset CLIs."""
-    import tempfile
-
+def disk_phase(cam, dev, card, poses, grays, depths, root: str) -> dict:
+    """Phase 11: the 16-frame orbit written as a TUM folder under `root`
+    (`root`/orbit, which phase 12 reads too), read back, run from disk,
+    checkpointed and resumed, and fed to the dataset CLIs."""
     from onepiece_tpu_torch import _build
     from onepiece_tpu_torch.io import png, tum
     from onepiece_tpu_torch.io import trajectory as traj
@@ -1167,155 +1194,487 @@ def disk_phase(cam, dev, card, poses, grays, depths) -> dict:
     from _torch_common import chunks, load_frames
 
     out = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_tum_") as root:
-        data = Path(root) / "orbit"
-        # -- (a) write: render on the card, encode on the host --
-        encode_s = []
+    data = Path(root) / "orbit"
+    # -- (a) write: render on the card, encode on the host --
+    encode_s = []
 
-        def timed_encode(encode):
-            def wrapped(*args, **kwargs):
-                t = time.perf_counter()
-                res = encode(*args, **kwargs)
-                encode_s.append(time.perf_counter() - t)
-                return res
-            return wrapped
-
-        t = time.perf_counter()
-        with patched(png, "encode", timed_encode):
-            gt = tum.write_synthetic_tum(str(data), num_frames=N_FRAMES, camera=cam, device=dev)
-        write_s = time.perf_counter() - t
-        mb = sum(f.stat().st_size for f in data.rglob("*") if f.is_file()) / 1e6
-        pixel_mb = N_FRAMES * cam.height * cam.width * (3 + 2) / 1e6
-        if not np.array_equal(gt, poses):
-            raise AssertionError("write_synthetic_tum: ground truth differs from the orbit's poses")
-        out["encode_ms_per_frame"] = sum(encode_s) * 1e3 / N_FRAMES
-        print(f"disk (a) write_synthetic_tum: {N_FRAMES} frames {cam.width}x{cam.height} in {write_s:.3f} s "
-              f"(render on the card, PNG encode {out['encode_ms_per_frame']:.2f} ms/frame for rgb + depth); folder "
-              f"{mb:.3f} MB for {pixel_mb:.3f} MB of pixels", flush=True)
-
-        # -- (b) read back through the CLIs' loader: bit-equal to the quantised render --
-        args = argparse.Namespace(dataset=str(data), synthetic=0, camera="tum", max_frames=None, scale=1,
-                                  device=str(dev))
-        frames, _, gt_read = load_frames(args)
-        t = time.perf_counter()
-        disk = [(g, d) for _, g, d in frames]
-        out["decode_ms_per_frame"] = (time.perf_counter() - t) * 1e3 / N_FRAMES
-        for i, (g, d) in enumerate(disk):
-            qg, qd = synthetic.quantize_rgbd(grays[i].cpu().numpy(), depths[i].cpu().numpy())
-            if not (np.array_equal(g, qg) and np.array_equal(d, qd)):
-                raise AssertionError(f"disk frame {i}: gray or depth differs from quantize_rgbd of the render "
-                                     f"({int((g != qg).sum())} gray, {int((d != qd).sum())} depth pixels)")
-        if not np.allclose(gt_read, poses, atol=2e-6):
-            raise AssertionError("groundtruth.txt does not read back as the orbit's poses")
-        print(f"disk (b) read back through _torch_common.load_frames: {N_FRAMES} frames bit-equal to "
-              f"quantize_rgbd of the in-memory render; decode {out['decode_ms_per_frame']:.2f} ms/frame "
-              f"(depth + rgb PNGs, luma fold, float32)", flush=True)
-
-        # -- (c) FusedDenseFusion from disk, chunks of DISK_CHUNK, frames decoded in the loop --
-        def from_disk():
-            torch.cuda.synchronize()
+    def timed_encode(encode):
+        def wrapped(*args, **kwargs):
             t = time.perf_counter()
-            s = FusedDenseFusion(cam, device=dev)
-            for g, d in chunks(load_frames(args)[0], DISK_CHUNK, dev):
-                s.process_chunk(g, d)
-            est, _ = s.finalize()
-            torch.cuda.synchronize()
-            return s, est, (time.perf_counter() - t) * 1e3 / N_FRAMES
+            res = encode(*args, **kwargs)
+            encode_s.append(time.perf_counter() - t)
+            return res
+        return wrapped
 
-        pre = [tuple(torch.from_numpy(np.stack([f[k] for f in disk[i : i + DISK_CHUNK]])).to(dev) for k in (0, 1))
-               for i in range(0, N_FRAMES, DISK_CHUNK)]
+    t = time.perf_counter()
+    with patched(png, "encode", timed_encode):
+        gt = tum.write_synthetic_tum(str(data), num_frames=N_FRAMES, camera=cam, device=dev)
+    write_s = time.perf_counter() - t
+    mb = sum(f.stat().st_size for f in data.rglob("*") if f.is_file()) / 1e6
+    pixel_mb = N_FRAMES * cam.height * cam.width * (3 + 2) / 1e6
+    if not np.array_equal(gt, poses):
+        raise AssertionError("write_synthetic_tum: ground truth differs from the orbit's poses")
+    out["encode_ms_per_frame"] = sum(encode_s) * 1e3 / N_FRAMES
+    print(f"disk (a) write_synthetic_tum: {N_FRAMES} frames {cam.width}x{cam.height} in {write_s:.3f} s "
+          f"(render on the card, PNG encode {out['encode_ms_per_frame']:.2f} ms/frame for rgb + depth); folder "
+          f"{mb:.3f} MB for {pixel_mb:.3f} MB of pixels", flush=True)
 
-        def preloaded():
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            s = FusedDenseFusion(cam, device=dev)
-            for g, d in pre:
-                s.process_chunk(g, d)
-            est, _ = s.finalize()
-            torch.cuda.synchronize()
-            return (time.perf_counter() - t) * 1e3 / N_FRAMES
+    # -- (b) read back through the CLIs' loader: bit-equal to the quantised render --
+    args = argparse.Namespace(dataset=str(data), synthetic=0, camera="tum", max_frames=None, scale=1,
+                              device=str(dev))
+    frames, _, gt_read = load_frames(args)
+    t = time.perf_counter()
+    disk = [(g, d) for _, g, d in frames]
+    out["decode_ms_per_frame"] = (time.perf_counter() - t) * 1e3 / N_FRAMES
+    for i, (g, d) in enumerate(disk):
+        qg, qd = synthetic.quantize_rgbd(grays[i].cpu().numpy(), depths[i].cpu().numpy())
+        if not (np.array_equal(g, qg) and np.array_equal(d, qd)):
+            raise AssertionError(f"disk frame {i}: gray or depth differs from quantize_rgbd of the render "
+                                 f"({int((g != qg).sum())} gray, {int((d != qd).sum())} depth pixels)")
+    if not np.allclose(gt_read, poses, atol=2e-6):
+        raise AssertionError("groundtruth.txt does not read back as the orbit's poses")
+    print(f"disk (b) read back through _torch_common.load_frames: {N_FRAMES} frames bit-equal to "
+          f"quantize_rgbd of the in-memory render; the ring's pass {out['decode_ms_per_frame']:.2f} ms/frame "
+          f"(depth + rgb PNGs, luma fold, float32)", flush=True)
 
-        from_disk()  # warm
-        _build.reset_launch_counts()
-        with SyncCounter() as sc:
-            s = FusedDenseFusion(cam, device=dev)
-            for g, d in chunks(load_frames(args)[0], DISK_CHUNK, dev):
-                s.process_chunk(g, d)
-            loop_syncs = sc.count
-        out["disk_launches"] = counted(
-            {"tsdf_integrate": N_FRAMES, "dense_normal_eq": sum(s.iters) * (N_FRAMES - 1), "nn1": 0,
-             "marching_cubes": 0, "hamming": 0, "ba_schur": 0}, "fused loop from disk")
+    # -- (c) FusedDenseFusion from disk, chunks of DISK_CHUNK, frames decoded by the prefetch ring --
+    def from_disk():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        s = FusedDenseFusion(cam, device=dev)
+        for g, d in chunks(load_frames(args)[0], DISK_CHUNK, dev):
+            s.process_chunk(g, d)
         est, _ = s.finalize()
-        ate = traj.ate_rmse(est, poses)
-        if not (np.isfinite(est).all() and ate <= MAX_ATE_M and s.overflow == 0 and loop_syncs == 0):
-            raise AssertionError(f"fused loop from disk: ATE {ate} m (<= {MAX_ATE_M}), overflow {s.overflow}, "
-                                 f"host syncs in the frame loop {loop_syncs} (0)")
-        ref = s
-        disk_ms = [from_disk()[2] for _ in range(TIMED_RUNS)]
-        pre_ms = [preloaded() for _ in range(TIMED_RUNS)]
-        out.update(disk_ms_per_frame=float(np.median(disk_ms)), preloaded_ms_per_frame=float(np.median(pre_ms)),
-                   ate_m=ate)
-        print(f"disk (c) FusedDenseFusion from disk in chunks of {DISK_CHUNK}: ATE {ate * 1e3:.4f} mm, overflow "
-              f"{s.overflow}, host syncs in the frame loop {loop_syncs}, launches {out['disk_launches']}; "
-              f"ms/frame over {TIMED_RUNS} runs, frames decoded in the loop: median {out['disk_ms_per_frame']:.3f} (runs "
-              f"{[round(x, 3) for x in disk_ms]}); preloaded on the card: median "
-              f"{out['preloaded_ms_per_frame']:.3f} (runs {[round(x, 3) for x in pre_ms]}) on {card}", flush=True)
+        torch.cuda.synchronize()
+        return s, est, (time.perf_counter() - t) * 1e3 / N_FRAMES
 
-        # -- (d) checkpoint after frames 0-7, resume in a fresh instance, frames 8-15 --
-        a = FusedDenseFusion(cam, device=dev)
-        a.process_chunk(*pre[0])
-        path = str(Path(root) / "fused_ckpt.npz")
+    pre = [tuple(torch.from_numpy(np.stack([f[k] for f in disk[i : i + DISK_CHUNK]])).to(dev) for k in (0, 1))
+           for i in range(0, N_FRAMES, DISK_CHUNK)]
+
+    def preloaded():
         torch.cuda.synchronize()
         t = time.perf_counter()
-        checkpoint.save(a, path)
-        save_ms = (time.perf_counter() - t) * 1e3
-        t = time.perf_counter()
-        b = checkpoint.load(path, cam, device=dev)
+        s = FusedDenseFusion(cam, device=dev)
+        for g, d in pre:
+            s.process_chunk(g, d)
+        est, _ = s.finalize()
         torch.cuda.synchronize()
-        load_ms = (time.perf_counter() - t) * 1e3
-        b.process_chunk(*pre[1])
-        est_b, _ = b.finalize()
-        same = (np.array_equal(est_b, est) and torch.equal(b._state.vox, ref._state.vox)
-                and all(torch.equal(x, y) for x, y in zip(b._state.table, ref._state.table)))
-        if not same:
-            raise AssertionError("resume from the checkpoint: poses, pool or hash table differ from the "
-                                 "uninterrupted run's")
-        out.update(save_ms=save_ms, load_ms=load_ms, checkpoint_mb=Path(path).stat().st_size / 1e6)
-        print(f"disk (d) checkpoint after frame {DISK_CHUNK - 1}, resumed in a fresh instance: poses, pool and "
-              f"hash table bit-equal to the uninterrupted run's; save {save_ms:.1f} ms, load {load_ms:.1f} ms, "
-              f"file {out['checkpoint_mb']:.3f} MB on {card}", flush=True)
-        del a, b, ref, s, pre
+        return (time.perf_counter() - t) * 1e3 / N_FRAMES
 
-        # -- (e) the dataset CLIs, all started together, one card --
-        env = dict(os.environ, PYTHONPATH=str(tools.parent))
-        procs = {name: subprocess.Popen([sys.executable, str(tools / f"{name}.py"), "--dataset", str(data), *extra],
-                                        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-                 for name, extra in DISK_CLIS}
-        t = time.perf_counter()
-        results, failed = {}, []
+    from_disk()  # warm
+    _build.reset_launch_counts()
+    with SyncCounter() as sc:
+        s = FusedDenseFusion(cam, device=dev)
+        for g, d in chunks(load_frames(args)[0], DISK_CHUNK, dev):
+            s.process_chunk(g, d)
+        loop_syncs = sc.count
+    out["disk_launches"] = counted(
+        {"tsdf_integrate": N_FRAMES, "dense_normal_eq": sum(s.iters) * (N_FRAMES - 1), "nn1": 0,
+         "marching_cubes": 0, "hamming": 0, "ba_schur": 0}, "fused loop from disk")
+    est, _ = s.finalize()
+    ate = traj.ate_rmse(est, poses)
+    if not (np.isfinite(est).all() and ate <= MAX_ATE_M and s.overflow == 0 and loop_syncs == 0):
+        raise AssertionError(f"fused loop from disk: ATE {ate} m (<= {MAX_ATE_M}), overflow {s.overflow}, "
+                             f"host syncs in the frame loop {loop_syncs} (0)")
+    ref = s
+    disk_ms = [from_disk()[2] for _ in range(TIMED_RUNS)]
+    pre_ms = [preloaded() for _ in range(TIMED_RUNS)]
+    out.update(disk_ms_per_frame=float(np.median(disk_ms)), preloaded_ms_per_frame=float(np.median(pre_ms)),
+               ate_m=ate)
+    print(f"disk (c) FusedDenseFusion from disk in chunks of {DISK_CHUNK}: ATE {ate * 1e3:.4f} mm, overflow "
+          f"{s.overflow}, host syncs in the frame loop {loop_syncs}, launches {out['disk_launches']}; "
+          f"ms/frame over {TIMED_RUNS} runs, frames from the prefetch ring: median {out['disk_ms_per_frame']:.3f} (runs "
+          f"{[round(x, 3) for x in disk_ms]}); preloaded on the card: median "
+          f"{out['preloaded_ms_per_frame']:.3f} (runs {[round(x, 3) for x in pre_ms]}) on {card}", flush=True)
+
+    # -- (d) checkpoint after frames 0-7, resume in a fresh instance, frames 8-15 --
+    a = FusedDenseFusion(cam, device=dev)
+    a.process_chunk(*pre[0])
+    path = str(Path(root) / "fused_ckpt.npz")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    checkpoint.save(a, path)
+    save_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    b = checkpoint.load(path, cam, device=dev)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t) * 1e3
+    b.process_chunk(*pre[1])
+    est_b, _ = b.finalize()
+    same = (np.array_equal(est_b, est) and torch.equal(b._state.vox, ref._state.vox)
+            and all(torch.equal(x, y) for x, y in zip(b._state.table, ref._state.table)))
+    if not same:
+        raise AssertionError("resume from the checkpoint: poses, pool or hash table differ from the "
+                             "uninterrupted run's")
+    out.update(save_ms=save_ms, load_ms=load_ms, checkpoint_mb=Path(path).stat().st_size / 1e6)
+    print(f"disk (d) checkpoint after frame {DISK_CHUNK - 1}, resumed in a fresh instance: poses, pool and "
+          f"hash table bit-equal to the uninterrupted run's; save {save_ms:.1f} ms, load {load_ms:.1f} ms, "
+          f"file {out['checkpoint_mb']:.3f} MB on {card}", flush=True)
+    del a, b, ref, s, pre
+
+    # -- (e) the dataset CLIs, all started together, one card --
+    env = dict(os.environ, PYTHONPATH=str(tools.parent))
+    procs = {name: subprocess.Popen([sys.executable, str(tools / f"{name}.py"), "--dataset", str(data), *extra],
+                                    cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for name, extra in DISK_CLIS}
+    t = time.perf_counter()
+    results, failed = {}, []
+    try:
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=DISK_CLI_TIMEOUT_S)
+            m = ATE_LINE.search(stdout)
+            results[name] = float(m.group(2)) if m else None
+            if proc.returncode != 0 or m is None or not np.isfinite(results[name]):
+                failed.append(f"{name}: exit {proc.returncode}, ATE {results[name]}\n{stdout[-2000:]}"
+                              f"\n{stderr[-4000:]}")
+    finally:
+        for proc in procs.values():  # stop whatever is still running
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    cli_s = time.perf_counter() - t
+    if failed:
+        raise AssertionError("dataset CLIs failed:\n" + "\n".join(failed))
+    if not results["torch_fused_fusion"] <= MAX_ATE_M:
+        raise AssertionError(f"torch_fused_fusion --dataset: ATE {results['torch_fused_fusion']} m > {MAX_ATE_M}")
+    if not (Path(root) / "fused.npz").exists():
+        raise AssertionError("torch_fused_fusion --checkpoint wrote no file")
+    out["cli_ate_m"] = results
+    print(f"disk (e) {len(procs)} dataset CLIs on the folder, started together: all exit 0 in {cli_s:.1f} s; "
+          f"ATE (m) {results}", flush=True)
+    return out
+
+
+LOOP_DISK_FRAMES = 100  # phase 12's folder: the 100-frame 640x480 loop_trajectory
+MAX_LOOP_DENSE_ATE_M = 1.0e-2  # the fused loop over the 100-frame loop
+JAX_RING = (2, 4)  # the JAX package's PrefetchingRGBDLoader defaults (n_threads, ring)
+BAD_FRAME = 4  # phase 12 (c): the frame whose depth PNG is truncated
+LONG_RUN_FRAMES = 200
+BA_TEST_NOISE_PX = 0.5  # torch_ba_test's default --pixel-noise
+LIVE_RATE_HZ = 30.0
+ICP_MAX_T_ERR = 1e-4  # torch_icp_test --synthetic: |T - T_gt| (the CPU runs reach ~1e-6)
+
+
+def ring_workers_alive() -> list[int]:
+    """Pids of this process's children that run the ring's worker script."""
+    alive = []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
         try:
-            for name, proc in procs.items():
-                stdout, stderr = proc.communicate(timeout=DISK_CLI_TIMEOUT_S)
-                m = ATE_LINE.search(stdout)
-                results[name] = float(m.group(2)) if m else None
-                if proc.returncode != 0 or m is None or not np.isfinite(results[name]):
-                    failed.append(f"{name}: exit {proc.returncode}, ATE {results[name]}\n{stdout[-2000:]}"
-                                  f"\n{stderr[-4000:]}")
-        finally:
-            for proc in procs.values():  # stop whatever is still running
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-        cli_s = time.perf_counter() - t
-        if failed:
-            raise AssertionError("dataset CLIs failed:\n" + "\n".join(failed))
-        if not results["torch_fused_fusion"] <= MAX_ATE_M:
-            raise AssertionError(f"torch_fused_fusion --dataset: ATE {results['torch_fused_fusion']} m > {MAX_ATE_M}")
-        if not (Path(root) / "fused.npz").exists():
-            raise AssertionError("torch_fused_fusion --checkpoint wrote no file")
-        out["cli_ate_m"] = results
-        print(f"disk (e) {len(procs)} dataset CLIs on the folder, started together: all exit 0 in {cli_s:.1f} s; "
-              f"ATE (m) {results}", flush=True)
+            with open(f"/proc/{pid}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read()
+        except OSError:  # the process ended meanwhile
+            continue
+        if ppid == os.getpid() and b"tum_frames.py" in cmd:
+            alive.append(int(pid))
+    return alive
+
+
+def real_input_phase(cam, dev, card, slice_slams: dict, root: str) -> dict:
+    """Phase 12: the prefetch ring against eager decode, the fused loop from
+    disk three ways, a bad file, the long run, the BA test (the BA Schur
+    kernel in the 2-D model) and the other tools of the slice."""
+    import inspect
+    import shutil
+
+    from onepiece_tpu_torch import _build
+    from onepiece_tpu_torch.integration import volume_ops
+    from onepiece_tpu_torch.io import ply, tum
+    from onepiece_tpu_torch.io import trajectory as traj
+    from onepiece_tpu_torch.ops import ba_schur
+    from onepiece_tpu_torch.systems.fused_slam import FusedDenseFusion
+    from onepiece_tpu_torch.utils import synthetic
+
+    tools = Path(__file__).resolve().parent / "tools"
+    sys.path.insert(0, str(tools))
+    import torch_acquire_live_data
+    import torch_ba_test
+    import torch_convert_to_pcd
+    import torch_convert_tsdf
+    import torch_icp_test
+    import torch_long_run
+    import torch_transfer_labels
+    from _torch_common import chunks, load_frames
+    from compare_torch_ring import eager  # phase 11's decode: 8 frames a decode_many call, in the calling thread
+
+    out = {}
+    root = Path(root)
+    orbit = root / "orbit"  # phase 11's 16-frame folder
+    loop_dir = root / "loop"
+    params = inspect.signature(tum.TumSequence.stream).parameters
+    chosen = (params["n_threads"].default, params["ring"].default)
+
+    # -- (a) the ring against eager decode on the 100-frame loop --
+    t = time.perf_counter()
+    loop_gt = tum.write_synthetic_tum(str(loop_dir), num_frames=LOOP_DISK_FRAMES, camera=cam, device=dev,
+                                      poses=synthetic.loop_trajectory(LOOP_DISK_FRAMES))
+    write_s = time.perf_counter() - t
+    seq = tum.TumSequence(str(loop_dir), depth_scale=cam.depth_scale)
+    pairs = [(str(loop_dir / d), str(loop_dir / r)) for _, r, d in seq.pairs]
+    t = time.perf_counter()
+    ref = {True: list(eager(pairs, seq.depth_scale, gray=True))}
+    eager_ms = (time.perf_counter() - t) * 1e3 / LOOP_DISK_FRAMES
+    ref[False] = list(eager(pairs, seq.depth_scale, gray=False))
+    ring_ms, first_ms = {}, {}
+    for setting in dict.fromkeys([JAX_RING, chosen]):
+        for gray in (True, False):
+            t = time.perf_counter()
+            loader = seq.stream(gray=gray, n_threads=setting[0], ring=setting[1])
+            n = 0
+            for (d, img), (rd, rimg) in zip(loader, ref[gray]):
+                if not (np.array_equal(d, rd) and np.array_equal(img, rimg)):
+                    raise AssertionError(f"ring {setting} gray={gray}: frame {n} differs from the eager decode")
+                if n == 0 and gray:
+                    first_ms[setting] = (time.perf_counter() - t) * 1e3
+                n += 1
+            if gray:
+                ring_ms[setting] = (time.perf_counter() - t) * 1e3 / LOOP_DISK_FRAMES
+            if n != LOOP_DISK_FRAMES or ring_workers_alive():
+                raise AssertionError(f"ring {setting}: {n} frames, workers left {ring_workers_alive()}")
+    del ref
+    t = time.perf_counter()  # what a worker's start costs before its first job: an interpreter and numpy
+    subprocess.run([sys.executable, "-P", "-c", "import numpy"], check=True)
+    start_ms = (time.perf_counter() - t) * 1e3
+    out.update(eager_decode_ms_per_frame=eager_ms, ring_decode_ms_per_frame={str(k): v for k, v in ring_ms.items()},
+               ring_first_frame_ms={str(k): v for k, v in first_ms.items()}, worker_start_ms=start_ms,
+               cpu_count=os.cpu_count(),
+               ring_setting=chosen)
+    print(f"real input (a) {LOOP_DISK_FRAMES}-frame {cam.width}x{cam.height} loop folder written in {write_s:.1f} s; every frame "
+          f"through the ring bit-equal to the eager decode, gray and rgb, at (n_threads, ring) {JAX_RING} (the JAX "
+          f"defaults) and {chosen} (the chosen defaults), no worker left; decode ms/frame (gray, the whole pass, "
+          f"worker start included): eager {eager_ms:.2f}, ring {JAX_RING} {ring_ms[JAX_RING]:.2f}, ring {chosen} "
+          f"{ring_ms[chosen]:.2f}; ms from the loader's start to its first frame: ring {JAX_RING} "
+          f"{first_ms[JAX_RING]:.1f}, ring {chosen} {first_ms[chosen]:.1f} (an interpreter that imports numpy, "
+          f"alone: {start_ms:.1f}); os.cpu_count() {os.cpu_count()} on "
+          f"{card}", flush=True)
+
+    # -- (b) the fused loop from disk: ring, eager, preloaded --
+    args = argparse.Namespace(dataset=str(loop_dir), synthetic=0, camera="tum", max_frames=None, scale=1,
+                              device=str(dev))
+    frames = list(eager(pairs, seq.depth_scale))
+    pre = [tuple(torch.from_numpy(np.stack([f[k] for f in frames[i : i + DISK_CHUNK]])).to(dev) for k in (1, 0))
+           for i in range(0, LOOP_DISK_FRAMES, DISK_CHUNK)]
+    del frames
+    feeds = {
+        "ring": lambda: chunks(load_frames(args)[0], DISK_CHUNK, dev),
+        "eager": lambda: chunks(((0.0, g, d) for d, g in eager(pairs, seq.depth_scale)), DISK_CHUNK, dev),
+        "preloaded": lambda: iter(pre),
+    }
+
+    def loop(feed):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        s = FusedDenseFusion(cam, device=dev)
+        for g, d in feed():
+            s.process_chunk(g, d)
+        est, _ = s.finalize()
+        torch.cuda.synchronize()
+        return s, est, (time.perf_counter() - t) * 1e3 / LOOP_DISK_FRAMES
+
+    loop(feeds["ring"])  # warm
+    _build.reset_launch_counts()
+    with SyncCounter() as sc:
+        s = FusedDenseFusion(cam, device=dev)
+        for g, d in feeds["ring"]():
+            s.process_chunk(g, d)
+        loop_syncs = sc.count
+    launches = counted({"tsdf_integrate": LOOP_DISK_FRAMES, "dense_normal_eq": sum(s.iters) * (LOOP_DISK_FRAMES - 1),
+                        "nn1": 0, "marching_cubes": 0, "hamming": 0, "ba_schur": 0}, "fused loop through the ring")
+    est, _ = s.finalize()
+    ate = traj.ate_rmse(est, loop_gt)
+    if not (np.isfinite(est).all() and ate <= MAX_LOOP_DENSE_ATE_M and s.overflow == 0 and loop_syncs == 0):
+        raise AssertionError(f"fused loop through the ring: ATE {ate} m (<= {MAX_LOOP_DENSE_ATE_M}), overflow "
+                             f"{s.overflow}, host syncs in the frame loop {loop_syncs} (0)")
+    del s
+    times = {k: [] for k in feeds}
+    for r in range(TIMED_RUNS):
+        for name in list(feeds) if r % 2 == 0 else list(feeds)[::-1]:
+            times[name].append(loop(feeds[name])[2])
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    out.update(loop_ms_per_frame=med, loop_ate_m=ate, loop_launches=launches)
+    print(f"real input (b) FusedDenseFusion on the {LOOP_DISK_FRAMES}-frame loop from disk in chunks of "
+          f"{DISK_CHUNK}: ATE {ate * 1e3:.4f} mm, overflow 0, host syncs in the frame loop {loop_syncs}, launches "
+          f"{launches}; ms/frame, medians of {TIMED_RUNS} after a warm run, in turns: ring {chosen} "
+          f"{med['ring']:.3f} (runs {[round(x, 2) for x in times['ring']]}), eager decode {med['eager']:.3f} (runs "
+          f"{[round(x, 2) for x in times['eager']]}), preloaded on the card {med['preloaded']:.3f} (runs "
+          f"{[round(x, 2) for x in times['preloaded']]}); ring / preloaded {med['ring'] / med['preloaded']:.3f}, "
+          f"ring / eager {med['ring'] / med['eager']:.3f}; os.cpu_count() {os.cpu_count()} on {card}", flush=True)
+    del pre
+
+    # -- (c) a truncated depth PNG: the consumer raises at its frame, no worker is left --
+    bad = root / "truncated"
+    shutil.copytree(orbit, bad)
+    bad_seq = tum.TumSequence(str(bad), depth_scale=cam.depth_scale)
+    path = bad / bad_seq.pairs[BAD_FRAME][2]
+    path.write_bytes(path.read_bytes()[: path.stat().st_size // 2])
+    loader = bad_seq.stream(gray=True)
+    got = 0
+    try:
+        for _ in loader:
+            got += 1
+        raise AssertionError("the ring read a truncated PNG without an error")
+    except ValueError as e:
+        message = str(e)
+    if not (got == BAD_FRAME and f"frame {BAD_FRAME}" in message and str(path) in message):
+        raise AssertionError(f"truncated PNG: raised after {got} frames: {message}")
+    if any(p.poll() is None for p in loader.workers) or ring_workers_alive():
+        raise AssertionError(f"truncated PNG: workers left {ring_workers_alive()}")
+    print(f"real input (c) frame {BAD_FRAME}'s depth PNG truncated: the ring yielded {got} frames, then raised "
+          f"ValueError ({message[:160]}); no worker left", flush=True)
+
+    # -- (d) the long run: 200 frames of the closed loop, both systems --
+    _build.reset_launch_counts()
+    summary = torch_long_run.main(["--frames", str(LONG_RUN_FRAMES), "--out", str(root / "LONGRUN_torch.json"),
+                                   "--metrics", str(root / "longrun_torch_metrics.jsonl")])
+    lr_launches = {k.name: k.launches for k in _build.KERNELS}
+    fused, sparse = summary["fused"], summary["sparse_fba"]
+    if not (fused["pool_growths"] >= 1 and sparse["loop_edges"] >= 1 and lr_launches["hamming"] > 0
+            and lr_launches["tsdf_integrate"] > 0 and lr_launches["dense_normal_eq"] > 0):
+        raise AssertionError(f"long run: pool growths {fused['pool_growths']}, loop-closure edges "
+                             f"{sparse['loop_edges']}, launches {lr_launches}")
+    out["long_run"] = dict(summary, launches=lr_launches)
+    print(f"real input (d) torch_long_run {LONG_RUN_FRAMES} frames: fused {fused['fps']:.2f} fps, ATE "
+          f"{fused['ate_rmse_m'] * 1e3:.4f} mm, warm-up {fused['warmup_s']:.2f} s, steady {fused['steady_s']:.2f} s, "
+          f"{fused['pool_growths']} pool growth(s) to {fused['capacity']}, overflow {fused['block_overflow']}; "
+          f"FBA {sparse['fps']:.2f} fps, ATE {sparse['ate_rmse_m'] * 1e3:.4f} mm, warm-up {sparse['warmup_s']:.2f} s, "
+          f"steady {sparse['steady_s']:.2f} s, {sparse['keyframes']} keyframes, {sparse['loop_edges']} loop edges, "
+          f"edge overflow {sparse['edge_overflow']}; launches (warm and timed runs) {lr_launches}, Hamming "
+          f"{lr_launches['hamming']} on {card}", flush=True)
+
+    # -- (e) the BA test: full BA in the 2-D model (the BA Schur kernel), the pose graph --
+    calls = []
+
+    def recording(fn):
+        def wrapped(*a, **kw):
+            calls.append(tuple(x.clone() if torch.is_tensor(x) else x for x in a[:9]))
+            return fn(*a, **kw)
+        return wrapped
+
+    _build.reset_launch_counts()
+    with patched(ba_schur, "reduced_system", recording):
+        full = torch_ba_test.main(["--mode", "full"])
+    ba_launches = {k.name: k.launches for k in _build.KERNELS}
+    if not (full["rms_px"] <= 2 * BA_TEST_NOISE_PX and np.isfinite(full["pose_err"])
+            and ba_launches["ba_schur"] == 2 * len(calls) > 0):
+        raise AssertionError(f"torch_ba_test full: rms {full['rms_px']} px (<= {2 * BA_TEST_NOISE_PX}), pose error "
+                             f"{full['pose_err']}, launches {ba_launches} for {len(calls)} LM steps")
+    def schur(a, kernel: bool) -> dict:
+        """The kernel's (or the plain version's) system and back-substitution
+        of a fixed camera step on inputs `a`."""
+        lists = ba_schur.build_lists(a[2], a[3], a[5], a[0].shape[0], a[1].shape[0])
+        dc = torch.from_numpy(np.random.default_rng(0).normal(size=6 * a[0].shape[0]) * 1e-3).to(a[0])
+        if kernel:
+            k = ba_schur.reduced_system(*a, lists=lists)
+            d = ba_schur.back_substitute(k, dc, a[2], a[3], lists)
+        else:
+            k = ba_schur.reduced_system_reference(*a)
+            d = ba_schur.back_substitute_reference(k, dc, a[2], a[3])
+        return dict(S=k.S, rhs_c=k.rhs_c, b_p=k.b_p, Vinv=k.Vinv[lists.point_ptr.diff() > 0], dp=d)
+
+    def errs(x: dict, y: dict) -> dict:
+        return {n: rel_err(x[n].double(), y[n].double()) for n in x}
+
+    def damped(a, lam):
+        return (*a[:6], torch.tensor(lam, dtype=torch.float32, device=dev), *a[7:])
+
+    # the first step, far from the optimum, at its damping and at those LM
+    # reaches after rejections: within phase 10's tolerance
+    first = {lam: errs(schur(damped(calls[0], lam), True), schur(damped(calls[0], lam), False))
+             for lam in (float(calls[0][6]), *BA_DAMPINGS)}
+    worst = {n: max(e[n] for e in first.values()) for n in first[float(calls[0][6])]}
+    if not max(worst.values()) <= KERNEL2_TOL:
+        raise AssertionError(f"ba_schur on torch_ba_test's first 2-D step: rel errs {first} (<= {KERNEL2_TOL})")
+    # near the optimum the gradients (rhs_c, b_p) vanish to rounding noise:
+    # the last step's kernel and float32 plain version, each against float64
+    last = calls[-1]
+    exact = schur(tuple(x.double() if torch.is_tensor(x) and x.is_floating_point() else x for x in last), False)
+    noise = dict(kernel=errs(schur(last, True), exact), plain=errs(schur(last, False), exact))
+    a = calls[0]
+    lists = ba_schur.build_lists(a[2], a[3], a[5], a[0].shape[0], a[1].shape[0])
+    k = ba_schur.reduced_system(*a, lists=lists)
+    dc = torch.zeros(k.rhs_c.shape[0], device=dev)
+    t_red = device_times(lambda: ba_schur.reduced_system(*a, lists=lists), BA_REDUCED_KERNELS)
+    t_back = device_times(lambda: ba_schur.back_substitute(k, dc, a[2], a[3], lists), BA_BACK_KERNELS)
+    ms = (sum(t_red["ms"].values()) if t_red["ms"] else device_ms(
+        lambda: ba_schur.reduced_system(*a, lists=lists), BA_REDUCED_KERNELS)) + \
+        (sum(t_back["ms"].values()) if t_back["ms"] else device_ms(
+            lambda: ba_schur.back_substitute(k, dc, a[2], a[3], lists), BA_BACK_KERNELS))
+    plain_ms = cuda_ms(lambda: ba_schur.back_substitute_reference(
+        ba_schur.reduced_system_reference(*a), dc, a[2], a[3]), reps=5)
+    n_bytes, n_ops, n_pairs = ba_bytes_ops(a, lists)
+    b = bound(n_bytes, n_ops)
+    out["ba_test_2d"] = dict(ms=ms, plain_ms=plain_ms, max_rel_err=max(worst.values()), steps=len(calls),
+                             rms_px=full["rms_px"], pose_err=full["pose_err"], last_step_vs_float64=noise, **b)
+    pg = torch_ba_test.main(["--mode", "posegraph"])
+    if not (np.isfinite(pg["pose_err"]) and pg["pose_err"] <= 1e-4):
+        raise AssertionError(f"torch_ba_test posegraph: pose error {pg['pose_err']}")
+    print(f"real input (e) torch_ba_test full (2-D model): rms {full['rms_px']:.4f} px (injected "
+          f"{BA_TEST_NOISE_PX} px), max pose error {full['pose_err']:.4g}, {len(calls)} LM steps, launches "
+          f"{ba_launches}; the BA Schur kernel against its plain version on the first step's inputs at lam "
+          f"{', '.join(f'{lam:.3g}' for lam in first)}: largest rel errs "
+          f"{', '.join(f'{n} {e:.3g}' for n, e in worst.items())} (<= {KERNEL2_TOL}); on the last step's, "
+          f"near the optimum, against float64: kernel "
+          f"{', '.join(f'{n} {e:.3g}' for n, e in noise['kernel'].items())}, float32 plain "
+          f"{', '.join(f'{n} {e:.3g}' for n, e in noise['plain'].items())}; F {a[0].shape[0]}, P "
+          f"{a[1].shape[0]}, O {a[2].shape[0]} ({n_pairs} pairs): device ms a step {ms:.4f}, plain {plain_ms:.4f} "
+          f"ms, bound {b['bound_ms']:.6f} ms ({b['bound_by']}: {n_ops} operations, {n_bytes} B), roofline share "
+          f"{b['bound_ms'] / ms:.4f}; posegraph: max pose error {pg['pose_err']:.3g} on {card}", flush=True)
+
+    # -- (f) the other tools --
+    tool_out = {}
+    for mode in ("point", "plane"):
+        _build.reset_launch_counts()
+        r = torch_icp_test.main(["--synthetic", "--mode", mode])
+        nn1 = _build.NN1.launches
+        if not (r["max_err"] <= ICP_MAX_T_ERR and nn1 == torch_icp_test.icp.DEFAULT_ITERS + 1):
+            raise AssertionError(f"torch_icp_test {mode}: |T - T_gt| {r['max_err']} (<= {ICP_MAX_T_ERR}), nn1 "
+                                 f"launches {nn1}")
+        tool_out[f"icp_{mode}"] = dict(max_err=r["max_err"], nn1_launches=nn1)
+    vol = slice_slams["gray"].to_volume()
+    npz, cube, back, mesh = (str(root / n) for n in ("gray.npz", "gray.cube", "back.npz", "gray.ply"))
+    volume_ops.save_volume(vol, npz)
+    scale = ["--voxel", str(vol.voxel_size), "--truncation", str(vol.truncation)]
+    torch_convert_tsdf.main([npz, cube])
+    torch_convert_tsdf.main([cube, back, *scale])
+    again = volume_ops.load_volume(back, device=dev)
+    n = vol.num_active
+    kept = (vol.sdf[:n].abs() < 1) & (vol.weight[:n] != 0)
+    if not (again.num_active == n and np.array_equal(again.block_coords[:n], vol.block_coords[:n])
+            and all(torch.equal(getattr(again, f)[:n][kept], getattr(vol, f)[:n][kept])
+                    for f in ("sdf", "weight", "color"))):
+        raise AssertionError("torch_convert_tsdf: npz -> cube -> npz changed an observed voxel")
+    _build.reset_launch_counts()
+    torch_convert_tsdf.main([cube, mesh, *scale])
+    mc = _build.MARCHING_CUBES.launches
+    faces = len(ply.read_ply(mesh)["faces"])
+    if not (mc == 1 and faces > 0):
+        raise AssertionError(f"torch_convert_tsdf -> PLY: marching-cubes launches {mc}, {faces} faces")
+    tool_out["convert_tsdf"] = dict(blocks=n, observed_voxels=int(kept.sum()), faces=faces, mc_launches=mc)
+    pcd = torch_convert_to_pcd.main(["--dataset", str(orbit), "--out", str(root / "orbit_cloud.ply")])
+    cloud = ply.read_ply(str(root / "orbit_cloud.ply"))
+    target = cloud["vertices"] + np.random.default_rng(2).normal(scale=0.002, size=cloud["vertices"].shape)
+    ply.write_ply_pointcloud(str(root / "target.ply"), target.astype(np.float32))
+    labels = torch_transfer_labels.main([str(root / "orbit_cloud.ply"), str(root / "target.ply"),
+                                         str(root / "labeled.ply")])
+    if not (pcd["points"] > 0 and labels["labeled"] == labels["points"] == pcd["points"]):
+        raise AssertionError(f"torch_convert_to_pcd {pcd}, torch_transfer_labels {labels}")
+    live = torch_acquire_live_data.main(["--replay", str(orbit), "--rate", str(LIVE_RATE_HZ), "--frames",
+                                         str(N_FRAMES), "--out", str(root / "recorded")])
+    if not (live["frames"] == N_FRAMES and live["seconds"] >= (N_FRAMES - 1) / LIVE_RATE_HZ
+            and np.isfinite(live["poses"]).all()):
+        raise AssertionError(f"torch_acquire_live_data: {live['frames']} frames in {live['seconds']} s")
+    tool_out.update(convert_to_pcd=pcd, transfer_labels=labels,
+                    acquire_live_data=dict(frames=live["frames"], seconds=live["seconds"], max_rmse=live["max_rmse"]))
+    out["tools"] = tool_out
+    print(f"real input (f) torch_icp_test --synthetic: point |T - T_gt| {tool_out['icp_point']['max_err']:.3g}, "
+          f"plane {tool_out['icp_plane']['max_err']:.3g}, nn1 launches {tool_out['icp_point']['nn1_launches']} a "
+          f"run; torch_convert_tsdf on phase 5's gray volume: npz -> cube -> npz bit-equal on {int(kept.sum())} "
+          f"observed voxels of {n} blocks, cube -> PLY {faces} faces ({mc} marching-cubes launch); "
+          f"torch_convert_to_pcd {pcd['points']} points from {pcd['clouds']} clouds; torch_transfer_labels "
+          f"{labels['labeled']}/{labels['points']} labelled; torch_acquire_live_data {live['frames']} frames at "
+          f"{LIVE_RATE_HZ:g} Hz in {live['seconds']:.3f} s (>= {(N_FRAMES - 1) / LIVE_RATE_HZ:.3f}), rmse max "
+          f"{live['max_rmse']:.4f}", flush=True)
     return out
 
 
@@ -1646,7 +2005,11 @@ def main() -> int:
     results["ba_schur"] = phase10["kernel"]
 
     # ---- 11. real input and state: the orbit from disk, checkpoint and resume, the dataset CLIs ----
-    disk_phase(cam, dev, card, poses, grays, depths)
+    # ---- 12. the prefetch ring, the fused loop from disk, the long run, the tools ----
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tum_") as root:
+        disk_phase(cam, dev, card, poses, grays, depths, root)
+        phase12 = real_input_phase(cam, dev, card, slice_slams, root)
+    results["ba_schur"].update({f"ba_test_2d_{k}": v for k, v in phase12["ba_test_2d"].items()})
 
     # the hamming launches are phase 9's counted runs, the ba_schur launches
     # phase 10's; the other four keep the counts of phases 5, 7 and 8 (phase

@@ -10,8 +10,9 @@ version on a CPU tensor. There is no fallback from one to the other.
 Layout (the slices so far: the dense fusion loop `systems/fused_slam.py`,
 DenseSlam `systems/dense_slam.py`, meshing with the pipelined loop
 `systems/pipeline.py`, sparse FBAFusion `systems/fused_sparse.py`, bundle
-adjustment `systems/fused_ba.py`, and real input and state `io/tum.py`,
-`io/png.py`, `utils/checkpoint.py`):
+adjustment `systems/fused_ba.py`, real input and state `io/tum.py`,
+`io/png.py`, `utils/checkpoint.py`, and the prefetch ring
+`io/native_loader.py` with the remaining I/O and tool modules):
   geometry/      SE(3) math, pinhole camera (+ presets), Kabsch and normal
                  fitting, fixed-capacity point clouds
   ops/           image ops, dense Gauss-Newton steps (kernel), TSDF keys and
@@ -28,9 +29,12 @@ adjustment `systems/fused_ba.py`, and real input and state `io/tum.py`,
   systems/       FusedDenseFusion, DenseSlam, PipelinedDenseFusion, FusedFBASlam,
                  FusedBASlam
   io/            trajectory IO, ATE / RPE, PLY meshes, PNG codec (zlib + numpy),
-                 TUM RGB-D sequences
+                 TUM RGB-D sequences read through the prefetch ring (decoder
+                 processes), live-stream replay, the C++ reference's cube
+                 format, OBJ meshes
   utils/         synthetic SDF renderer with exact ground-truth poses;
-                 checkpoint / resume of the device-resident systems
+                 checkpoint / resume of the device-resident systems; the
+                 configuration tree, timers, logging
 """
 
 import torch

@@ -67,13 +67,15 @@ class PointCloud:
         return PointCloud(*arrays, valid)
 
     @staticmethod
-    def from_rgbd(depth: torch.Tensor, camera, depth_min: float, depth_max: float) -> "PointCloud":
-        """Back-project a depth image into a camera-frame cloud of capacity
-        H*W (no colour); depths outside (depth_min, depth_max) stay as
-        masked entries."""
+    def from_rgbd(depth: torch.Tensor, rgb: torch.Tensor | None, camera, depth_min: float = 0.05,
+                  depth_max: float = 10.0) -> "PointCloud":
+        """Back-project a depth image, with its (H, W, 3) colours if `rgb` is
+        given (else black), into a camera-frame cloud of capacity H*W;
+        depths outside (depth_min, depth_max) stay as masked entries."""
         pts = camera.backproject_grid(depth).reshape(-1, 3)
         valid = ((depth > depth_min) & (depth < depth_max) & torch.isfinite(depth)).reshape(-1)
-        return PointCloud(pts, torch.zeros_like(pts), torch.zeros_like(pts), valid)
+        col = torch.zeros_like(pts) if rgb is None else rgb.reshape(-1, 3).to(torch.float32)
+        return PointCloud(pts, torch.zeros_like(pts), col, valid)
 
     def transform(self, T: torch.Tensor) -> "PointCloud":
         return dataclasses.replace(

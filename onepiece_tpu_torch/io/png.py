@@ -153,12 +153,32 @@ def _inflate(data: bytes) -> tuple[tuple, np.ndarray]:
     return (width, height, depth, channels), np.frombuffer(raw, np.uint8).reshape(height, stride)
 
 
-def decode_many(datas: list[bytes]) -> list[np.ndarray]:
+def image_size(data: bytes) -> tuple[int, int]:
+    """(width, height) of a PNG file from its first 33 bytes (the signature
+    and the IHDR chunk, its CRC checked)."""
+    kind, payload = next(_chunks(data))
+    if kind != b"IHDR":
+        raise ValueError("PNG file does not start with an IHDR chunk")
+    return struct.unpack(">II", payload[:8])
+
+
+def _named(name: str | None, e: ValueError) -> ValueError:
+    return ValueError(f"{name}: {e}") if name else e
+
+
+def decode_many(datas: list[bytes], names: list[str] | None = None) -> list[np.ndarray]:
     """`decode` of several PNG files. Images of one width and height are
     undone together, their bytes side by side as channels of one image, so
     the sweep's numpy steps are shared (a TUM frame's depth and colour, or a
-    batch of frames)."""
-    parsed = [_inflate(d) for d in datas]
+    batch of frames). `names` (the files' paths) prefix the messages of the
+    errors raised."""
+    names = names or [None] * len(datas)
+    parsed = []
+    for d, name in zip(datas, names):
+        try:
+            parsed.append(_inflate(d))
+        except ValueError as e:
+            raise _named(name, e) from None
     out: list[np.ndarray | None] = [None] * len(datas)
     groups: dict[tuple[int, int], list[int]] = {}
     for i, ((w, h, _, _), _) in enumerate(parsed):
@@ -167,7 +187,10 @@ def decode_many(datas: list[bytes]) -> list[np.ndarray]:
         bpps = [parsed[i][0][2] // 8 * parsed[i][0][3] for i in idx]
         data = np.concatenate([parsed[i][1][:, 1:].reshape(h, w, bpp) for i, bpp in zip(idx, bpps)], axis=2)
         kinds = np.concatenate([np.repeat(parsed[i][1][:, :1], bpp, axis=1) for i, bpp in zip(idx, bpps)], axis=1)
-        px = _unfilter(kinds, data)
+        try:
+            px = _unfilter(kinds, data)
+        except ValueError as e:
+            raise _named(", ".join(n for n in (names[i] for i in idx) if n), e) from None
         at = 0
         for i, bpp in zip(idx, bpps):
             (_, _, depth, channels), _ = parsed[i]

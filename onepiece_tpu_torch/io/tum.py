@@ -8,11 +8,11 @@ scales 16-bit depth by the camera's depth_scale, and reads
 `groundtruth.txt`. `write_synthetic_tum` renders a synthetic sequence into
 the same on-disk format, so every tool can run without a dataset.
 
-`TumSequence.stream` decodes in the calling thread, a batch of frames'
-PNGs at a time (their row-filter sweeps shared); the JAX package's native
-prefetch ring (`io/native_loader.py`) is not ported. Its gray is the native
-loader's integer luma fold, so both packages feed their systems the same
-numbers.
+`TumSequence.stream` returns the prefetch ring (`io/native_loader.py`:
+decoder processes that decode frame N + k while frame N runs), as the JAX
+package's does. Its gray is the JAX native loader's integer luma fold, so
+both packages feed their systems the same numbers; the ring's workers and
+`TumSequence[i]` decode through `io/tum_frames.py`.
 """
 
 from __future__ import annotations
@@ -22,11 +22,8 @@ import os
 import numpy as np
 
 from . import png
-
-# frames whose PNGs `TumSequence.stream` decodes together: their row-filter
-# sweeps share numpy's per-call cost; the sweep's int16 scratch is ~25 MB a
-# 640x480 frame
-DECODE_BATCH = 8
+from .native_loader import N_WORKERS, RING, PrefetchingRGBDLoader
+from .tum_frames import read_frames
 
 
 def _read_listing(path: str) -> list[tuple[float, str]]:
@@ -64,35 +61,6 @@ def associate(
     return out
 
 
-def luma(rgb: np.ndarray) -> np.ndarray:
-    """uint8 (H, W, 3) -> uint8 (H, W): (299 r + 587 g + 114 b) // 1000, the
-    JAX package's native loader's fold (`native/rgbd_loader.cpp`)."""
-    c = rgb.astype(np.int32)
-    return ((299 * c[..., 0] + 587 * c[..., 1] + 114 * c[..., 2]) // 1000).astype(np.uint8)
-
-
-def _as_rgb(img: np.ndarray, path: str) -> np.ndarray:
-    """uint8 (H, W, 3): gray files repeat their channel, alpha is dropped."""
-    if img.dtype != np.uint8:
-        raise ValueError(f"{path}: colour image of {img.dtype} samples, expected 8-bit")
-    if img.ndim == 2:
-        return np.repeat(img[..., None], 3, axis=-1)
-    if img.shape[2] == 2:  # gray + alpha
-        return np.repeat(img[..., :1], 3, axis=-1)
-    return img[..., :3]
-
-
-def _as_depth16(img: np.ndarray, path: str) -> np.ndarray:
-    if img.dtype != np.uint16 or img.ndim != 2:
-        raise ValueError(f"{path}: depth image of {img.dtype} samples, shape {img.shape}; expected 16-bit gray")
-    return img
-
-
-def _read(path: str) -> bytes:
-    with open(path, "rb") as f:
-        return f.read()
-
-
 class TumSequence:
     """Iterates (timestamp, rgb (H, W, 3) uint8, depth (H, W) float32 meters)."""
 
@@ -118,28 +86,18 @@ class TumSequence:
     def __len__(self):
         return len(self.pairs)
 
-    def _decode(self, pairs) -> list[tuple[np.ndarray, np.ndarray]]:
-        """(rgb uint8 (H, W, 3), depth uint16 (H, W)) of each pair, every
-        PNG of the pairs decoded together (`png.decode_many`)."""
-        paths = [os.path.join(self.root, rel) for _, rgb_rel, depth_rel in pairs for rel in (rgb_rel, depth_rel)]
-        imgs = png.decode_many([_read(p) for p in paths])
-        return [(_as_rgb(imgs[2 * i], paths[2 * i]), _as_depth16(imgs[2 * i + 1], paths[2 * i + 1]))
-                for i in range(len(pairs))]
-
     def __getitem__(self, i):
-        ts = self.pairs[i][0]
-        ((rgb, d16),) = self._decode(self.pairs[i : i + 1])
+        ts, rgb_rel, depth_rel = self.pairs[i]
+        ((rgb, d16),) = read_frames([(os.path.join(self.root, depth_rel), os.path.join(self.root, rgb_rel))])
         return ts, rgb, d16.astype(np.float32) / self.depth_scale
 
-    def stream(self, gray: bool = True):
-        """Iterate (depth_m float32, gray float32 in [0, 1] or rgb float32
-        (H, W, 3) in [0, 1]), decoded in the calling thread, DECODE_BATCH
-        frames' PNGs at a time. Gray is the integer luma fold of the colour
-        image, / 255."""
-        for at in range(0, len(self.pairs), DECODE_BATCH):
-            for rgb, d16 in self._decode(self.pairs[at : at + DECODE_BATCH]):
-                img = luma(rgb) if gray else rgb
-                yield d16.astype(np.float32) / self.depth_scale, img.astype(np.float32) / 255.0
+    def stream(self, gray: bool = True, n_threads: int = N_WORKERS, ring: int = RING) -> PrefetchingRGBDLoader:
+        """The prefetch ring over the sequence: (depth_m float32, gray
+        float32 in [0, 1] or rgb float32 (H, W, 3) in [0, 1]) frames, decoded
+        by `n_threads` worker processes at most `ring` frames ahead. Gray is
+        the integer luma fold of the colour image, / 255."""
+        pairs = [(os.path.join(self.root, d), os.path.join(self.root, r)) for _, r, d in self.pairs]
+        return PrefetchingRGBDLoader(pairs, depth_scale=self.depth_scale, gray=gray, n_threads=n_threads, ring=ring)
 
     def groundtruth(self):
         """Returns (timestamps, poses (N, 4, 4)) from groundtruth.txt or None."""
@@ -160,9 +118,11 @@ def write_synthetic_tum(
     corrupt_seed: int = 1000,
     textureless: tuple[int, int] | None = None,
     device="cuda",
+    poses: np.ndarray | None = None,
 ) -> np.ndarray:
-    """Render the synthetic orbit on `device` into TUM on-disk format;
-    returns the ground-truth poses (N, 4, 4).
+    """Render the synthetic orbit (or the camera-to-world `poses` (N, 4, 4),
+    e.g. `synthetic.loop_trajectory(N)`) on `device` into TUM on-disk
+    format; returns the ground-truth poses (N, 4, 4).
 
     `corrupt` applies the sensor model (`utils/synthetic.corrupt_rgbd`:
     depth noise, dropout holes, gray noise) with per-frame seeds, so the
@@ -179,9 +139,9 @@ def write_synthetic_tum(
     os.makedirs(os.path.join(root, "rgb"), exist_ok=True)
     os.makedirs(os.path.join(root, "depth"), exist_ok=True)
     scene = synthetic.default_scene(device)
-    poses = synthetic.orbit_trajectory(num_frames)
+    poses = synthetic.orbit_trajectory(num_frames) if poses is None else np.asarray(poses)[:num_frames]
     rgb_lines, depth_lines = [], []
-    for i in range(num_frames):
+    for i in range(len(poses)):
         d, g = synthetic.render(
             scene, torch.from_numpy(poses[i]).to(device), camera.fx, camera.fy, camera.cx,
             camera.cy, camera.height, camera.width, num_steps=num_steps,
@@ -204,5 +164,5 @@ def write_synthetic_tum(
         f.write("# ts filename\n" + "\n".join(rgb_lines) + "\n")
     with open(os.path.join(root, "depth.txt"), "w") as f:
         f.write("# ts filename\n" + "\n".join(depth_lines) + "\n")
-    write_tum_trajectory(os.path.join(root, "groundtruth.txt"), np.arange(num_frames) / 30.0, poses)
+    write_tum_trajectory(os.path.join(root, "groundtruth.txt"), np.arange(len(poses)) / 30.0, poses)
     return poses

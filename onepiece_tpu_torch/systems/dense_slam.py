@@ -106,7 +106,7 @@ class DenseSlam:
         self.poses.append(T_world)
 
         if (fidx - self.submap_base[sm_idx]) % CLOUD_STRIDE == 0:
-            cloud = PointCloud.from_rgbd(depth, self.camera, dense.MIN_DEPTH, dense.MAX_DEPTH)
+            cloud = PointCloud.from_rgbd(depth, None, self.camera, dense.MIN_DEPTH, dense.MAX_DEPTH)
             self._pending_clouds.append(cloud.transform(self._tensor(self.rel_in_submap[-1])))
 
         out = {"frame": fidx, "rmse": rmse, "submap": sm_idx}

@@ -1005,3 +1005,63 @@ def test_fused_ba_on_the_card(dev, frames):
     assert np.array_equal(est, b.trajectory()) and a.ba_mse == b.ba_mse
     for x, y in zip(a._track_state, b._track_state):
         assert torch.equal(x, y)
+
+
+def test_ring_upload_path_on_the_card(dev, tmp_path):
+    """A 12-frame 160x120 folder through the CLIs' path on the card: the
+    prefetch ring (`_torch_common.load_frames`), chunks of 8 uploaded through
+    pinned memory (`chunks`): the tensors on the card equal the eager decode,
+    FusedDenseFusion over them makes no host sync, and no worker is left."""
+    import argparse
+    import sys
+    from pathlib import Path
+
+    from onepiece_tpu_torch.io import tum
+    from onepiece_tpu_torch.io.tum_frames import read_frames, to_floats
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
+    from _torch_common import chunks, load_frames
+
+    poses = tum.write_synthetic_tum(str(tmp_path), num_frames=12, camera=CAM, device=dev)
+    seq = tum.TumSequence(str(tmp_path))
+    eager = [to_floats(rgb, d16, seq.depth_scale, True)
+             for rgb, d16 in read_frames([(str(tmp_path / d), str(tmp_path / r)) for _, r, d in seq.pairs])]
+    args = argparse.Namespace(dataset=str(tmp_path), synthetic=0, camera="tum", max_frames=None, scale=4,
+                              device="cuda")
+    frames, cam, gt = load_frames(args)
+    slam = FusedDenseFusion(cam, device=dev)
+    got = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for g, d in chunks(frames, 8, dev):
+            assert g.is_cuda and d.is_cuda
+            got.append((g, d))
+            slam.process_chunk(g, d)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    g = torch.cat([x for x, _ in got]).cpu().numpy()
+    d = torch.cat([y for _, y in got]).cpu().numpy()
+    assert np.array_equal(g, np.stack([x for _, x in eager])) and np.array_equal(d, np.stack([x for x, _ in eager]))
+    est, _ = slam.finalize()
+    assert traj.ate_rmse(est, gt) < 0.01 and np.allclose(gt, poses, atol=2e-6)
+
+
+def test_ba_test_tool_on_the_card(dev):
+    """`tools/torch_ba_test.py` on the card: full BA in the 2-D model runs
+    the BA Schur kernel (2 launches an LM step, nothing else) and ends within
+    2x the injected pixel noise and within 10 % of the CPU run's error; the
+    pose graph recovers the poses."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
+    import torch_ba_test
+
+    _build.reset_launch_counts()
+    card = torch_ba_test.main(["--mode", "full"])
+    launches = {k.name: k.launches for k in _build.KERNELS}
+    assert launches["ba_schur"] == 2 * 20 and sum(launches.values()) == launches["ba_schur"]
+    cpu = torch_ba_test.main(["--mode", "full", "--device", "cpu"])
+    assert card["rms_px"] <= 2 * 0.5 and abs(card["rms_px"] - cpu["rms_px"]) <= 0.1 * cpu["rms_px"]
+    assert np.isfinite(card["pose_err"])
+    assert torch_ba_test.main(["--mode", "posegraph"])["pose_err"] <= 1e-4

@@ -256,7 +256,7 @@ def test_from_rgbd_and_transform_match_jax():
     depth[rng.random((60, 80)) < 0.1] = 0.0
     Tm = np.asarray(jse3.se3_exp(jnp.asarray([0.1, -0.2, 0.3, 0.04, -0.05, 0.06], jnp.float32)))
     cj = jpc.PointCloud.from_rgbd(jnp.asarray(depth), None, JCam(**kw), 0.5, 4.0).transform(jnp.asarray(Tm))
-    ct = tpc.PointCloud.from_rgbd(T(depth), TCam(**kw), 0.5, 4.0).transform(T(Tm))
+    ct = tpc.PointCloud.from_rgbd(T(depth), None, TCam(**kw), 0.5, 4.0).transform(T(Tm))
     np.testing.assert_array_equal(N(ct.valid), np.asarray(cj.valid))
     np.testing.assert_allclose(N(ct.points), np.asarray(cj.points), atol=1e-5)
 

@@ -63,7 +63,8 @@ def load_frames(args):
     m) plus returns (camera, ground-truth poses (N, 4, 4) or None). Synthetic
     frames are all rendered here, on `args.device` (64 sphere-tracing steps),
     so a CLI's timed loop leaves the render out; dataset frames are numpy
-    arrays, decoded as the loop consumes them."""
+    arrays from the prefetch ring (`TumSequence.stream`: decoder processes
+    a few chunks ahead of the loop)."""
     cam = scaled_camera(PRESETS[args.camera], args.scale)
     if args.synthetic:
         n = min(args.max_frames or args.synthetic, args.synthetic)

@@ -8,11 +8,11 @@
 Writes the synthetic orbit (`--frames` frames, rendered on `--device`) as a
 TUM folder with this tree's `io/tum.write_synthetic_tum`, reads every PNG
 file into memory, then decodes the frames in turns (other, this, this,
-other, per round), `DECODE_BATCH` frames' depth and colour PNGs to one
-`decode_many` call as `TumSequence.stream` makes them. Both decoders' images
-must be equal. Prints host ms per frame (depth + colour) of each round and
-the medians, the host's decoding only, no file reads; on a CUDA device also
-the card's name and power limit. The other tree's `io/png.py` is loaded
+other, per round), `BATCH` = 8 frames' depth and colour PNGs to one
+`decode_many` call, as the reader decoded them before the prefetch ring.
+Both decoders' images must be equal. Prints host ms per frame (depth +
+colour) of each round and the medians, the host's decoding only, no file
+reads; on a CUDA device also the card's name and power limit. The other tree's `io/png.py` is loaded
 from its file (it imports only the standard library and numpy). One JSON
 line of the results last.
 """
@@ -35,6 +35,8 @@ import numpy as np  # noqa: E402
 
 from onepiece_tpu_torch.geometry.camera import TUM_CAMERA  # noqa: E402
 from onepiece_tpu_torch.io import png, tum  # noqa: E402
+
+BATCH = 8  # frames a decode_many call
 
 
 def load_png(tree: str):
@@ -59,8 +61,8 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="compare_png_") as root:
         tum.write_synthetic_tum(root, num_frames=args.frames, camera=cam, device=args.device)
         seq = tum.TumSequence(root, depth_scale=cam.depth_scale)
-        datas = [[(Path(root) / p).read_bytes() for _, *ps in seq.pairs[at : at + tum.DECODE_BATCH] for p in ps]
-                 for at in range(0, len(seq.pairs), tum.DECODE_BATCH)]
+        datas = [[(Path(root) / p).read_bytes() for _, *ps in seq.pairs[at : at + BATCH] for p in ps]
+                 for at in range(0, len(seq.pairs), BATCH)]
     decoders = {"other": load_png(args.parent).decode_many, "this": png.decode_many}
 
     def timed(name: str) -> float:
