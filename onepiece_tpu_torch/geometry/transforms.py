@@ -1,6 +1,7 @@
 """Rigid-transform estimation and normal fitting, batched-first.
 
 Port of `onepiece_tpu/geometry/transforms.py` (`kabsch`, `kabsch_fast`,
+`fit_plane`, `fit_line`, `plane_point_distance`,
 `estimate_normals_from_neighbors`). Every function takes a leading batch
 of any shape: (..., N, 3) in, (..., 4, 4) or (..., 3) out.
 """
@@ -104,6 +105,33 @@ def kabsch_fast(
     ], dim=-2)
     t = mu_d - (R @ mu_s[..., None])[..., 0]
     return make_T(R, t)
+
+
+def fit_plane(points: torch.Tensor, weights: torch.Tensor | None = None) -> torch.Tensor:
+    """Weighted least-squares plane (n, d), |n| = 1, n.p + d = 0 (ref:
+    Geometry.cpp:172-220 `FitPlane`): n is the smallest right-singular
+    vector of the weighted, centred points. points (..., N, 3) -> (..., 4);
+    the sign of (n, d) is the SVD's."""
+    if weights is None:
+        weights = torch.ones(points.shape[:-1], dtype=points.dtype, device=points.device)
+    w = weights / torch.clamp(torch.sum(weights, dim=-1, keepdim=True), min=1e-12)
+    mu = torch.sum(points * w[..., None], dim=-2)
+    c = (points - mu[..., None, :]) * torch.sqrt(w)[..., None]
+    n = torch.linalg.svd(c, full_matrices=False)[2][..., 2, :]
+    d = -torch.sum(n * mu, dim=-1)
+    return torch.cat([n, d[..., None]], dim=-1)
+
+
+def fit_line(points: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Least-squares 3-D line (origin, direction) (ref: Geometry.cpp:222-262
+    `FitLine`): the mean, and the largest principal axis (its sign the SVD's)."""
+    mu = torch.mean(points, dim=-2)
+    return mu, torch.linalg.svd(points - mu[..., None, :], full_matrices=False)[2][..., 0, :]
+
+
+def plane_point_distance(plane: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """Signed distances: plane (..., 4), points (..., N, 3) -> (..., N)."""
+    return torch.einsum("...i,...ni->...n", plane[..., :3], points) + plane[..., 3:4]
 
 
 def estimate_normals_from_neighbors(neighbors: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:

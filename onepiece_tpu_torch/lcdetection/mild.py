@@ -1,9 +1,11 @@
-"""Loop-closure candidates over binary descriptors (MILD-equivalent), on the device.
+"""Loop-closure detection over binary descriptors (MILD-equivalent): device and host halves.
 
-Port of the device half of `onepiece_tpu/lcdetection/mild.py`: the
-constants, `_similarity_scores`, `salient_scores_device` and
-`lc_candidates_device`. (The host `BayesianTemporalFilter` and
-`LoopClosureDetector` serve only the host-loop systems and are not ported.)
+Port of `onepiece_tpu/lcdetection/mild.py`: the device half (the
+constants, `_similarity_scores`, `salient_scores_device`,
+`lc_candidates_device`) that the fused systems run, and the host half that
+the host-loop systems run (`salient_scores`, `BayesianTemporalFilter`,
+`LoopClosureDetector`): numpy statistics over similarity vectors that the
+device computes and hands back in one copy.
 
 A query frame's features are scored against every stored keyframe's: each
 database feature within Hamming distance 64 contributes
@@ -25,6 +27,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from .. import _build
@@ -115,13 +118,13 @@ def mild_feature_scores(q_desc, q_valid, db_desc, db_valid, g) -> torch.Tensor:
 
 
 def _tfidf(fs: torch.Tensor, q_valid: torch.Tensor, num_keyframes) -> torch.Tensor:
-    """(K,) tf-idf similarity from the feature scores (ref:
-    loop_closure_detector.cpp:213-227)."""
-    energy = _ENERGY_FLOOR + torch.sum(fs, dim=-1, keepdim=True)  # (N, 1)
+    """(..., K) tf-idf similarity from the feature scores fs (..., N, K)
+    (ref: loop_closure_detector.cpp:213-227)."""
+    energy = _ENERGY_FLOOR + torch.sum(fs, dim=-1, keepdim=True)  # (..., N, 1)
     simcount = torch.clamp(torch.sum((fs > 0).to(torch.int32), dim=-1), min=1)
-    idf = torch.log(torch.clamp(num_keyframes / simcount.to(torch.float32), min=1.0))  # (N,)
-    contrib = fs / energy * idf[:, None]
-    return torch.sum(torch.where(q_valid[:, None], contrib, 0.0), dim=0)
+    idf = torch.log(torch.clamp(num_keyframes / simcount.to(torch.float32), min=1.0))  # (..., N)
+    contrib = fs / energy * idf[..., None]
+    return torch.sum(torch.where(q_valid[..., None], contrib, 0.0), dim=-2)
 
 
 def _similarity_scores(
@@ -197,3 +200,183 @@ def candidates_from_scores(fs, q_valid, g, limit, exclude, max_candidates: int =
     order_mask = (idx < limit) & (idx != exclude)
     vals, top = top_k_lowest_index(torch.where(order_mask, sal, -torch.inf), max_candidates)
     return top, vals > SALIENT_THRESHOLD
+
+
+# ---------------------------------------------------------------------------
+# The host half: the host-loop systems' keyframe database and candidate rules
+# ---------------------------------------------------------------------------
+
+
+def salient_scores(sims: np.ndarray) -> np.ndarray:
+    """Reference `calculateSalientScore` (ref: BayesianFilter.hpp:40-100):
+    the trailing streak of above-average scores (the adjacent keyframes) is
+    trimmed from the statistics, then salient[i] = (sim[i] - std) / mean;
+    3.0 everywhere when no history is left, 1.0 when it is degenerate."""
+    n = len(sims)
+    if n == 0:
+        return np.zeros(0, np.float32)
+    avg = float(sims.mean())
+    # the largest index with sims[i] < avg; the statistics take [0:hist], excluding it
+    hist = n - 1
+    while hist >= 0 and sims[hist] >= avg:
+        hist -= 1
+    if hist <= 0:
+        return np.full(n, 3.0, np.float32)
+    s = sims[:hist]
+    mean = float(s.mean())
+    if mean < 1e-8 or hist < 3:
+        return np.ones(n, np.float32)
+    delta = float(np.linalg.norm(s - s.mean()) / max(np.sqrt(hist - 1), 1.0))
+    return ((sims - delta) / mean).astype(np.float32)
+
+
+class BayesianTemporalFilter:
+    """Sequential visit-probability filter (ref: BayesianFilter.hpp:103-172).
+
+    `update(sims)` once per query, in keyframe order, returns the visit
+    probabilities of the `len(sims) - min_distance` older keyframes. The
+    flags (prob > probability_threshold) of every step are kept, and a
+    detection supported neither by the two steps before it nor by the step
+    after it, within +-4 keyframes, is erased from the last three steps
+    (the reference's `privious_visit_flag` surgery)."""
+
+    TRANS = ((0.95, 0.05), (0.05, 0.95))
+
+    def __init__(self, probability_threshold: float = 0.6, non_loop_closure_threshold: float = 4.0,
+                 min_shared_score_threshold: float = 4.0, min_distance: int = 1):
+        # defaults: ref BayesianFilter.hpp:26-29
+        self.probability_threshold = probability_threshold
+        self.nlc = non_loop_closure_threshold
+        self.min_shared = min_shared_score_threshold
+        self.min_distance = min_distance
+        self.prev_prob = np.zeros(0, np.float32)
+        self.flags: list[np.ndarray] = []
+
+    def update(self, sims: np.ndarray) -> np.ndarray:
+        n = len(sims) - self.min_distance
+        if n <= 0:
+            return np.zeros(0, np.float32)
+        s = np.asarray(sims[:n], np.float32)
+        mean = float(s.mean())
+        delta = float(np.linalg.norm(s - s.mean()) / max(np.sqrt(max(n - 1, 1)), 1.0))
+        prob = np.zeros(n, np.float32)
+        prev = self.prev_prob
+        for i in range(n):
+            sal = (s[i] - delta) / mean if mean >= 1e-8 else 1.0
+            if s[i] < self.min_shared:
+                sal = 1.0
+            like = max(1.0, sal)
+            lo = max(i - 2, 0)
+            hi = min(len(prev) - 1, i + 3)
+            alpha = float(prev[lo : hi + 1].max()) if hi >= lo and len(prev) else 0.0
+            p1 = like * self.TRANS[1][0] * (1 - alpha) + like * self.TRANS[1][1] * alpha
+            p2 = self.nlc * self.TRANS[0][0] * (1 - alpha) + self.nlc * self.TRANS[0][1] * alpha
+            prob[i] = p1 / (p1 + p2)
+        flags = (prob > self.probability_threshold).astype(np.int32)
+        # retro-erasure of isolated detections (ref: BayesianFilter.hpp:139-166)
+        if len(self.flags) >= 4:
+            prev_f = self.flags[-1]
+            rng = len(prev_f)
+            i = 0
+            while i < rng:
+                if prev_f[i] > 0:
+                    start = max(i - 4, 0)
+                    while i < rng and prev_f[i] > 0:
+                        i += 1
+                    end = min(i + 4, max(rng - 3, start + 1))
+                    if flags[start:end].max(initial=0) == 0:
+                        p2f = self.flags[-3][start:end].max(initial=0)
+                        p1f = self.flags[-2][start:end].max(initial=0)
+                        if p2f + p1f < 2:
+                            self.flags[-3][start:end] = 0
+                            self.flags[-2][start:end] = 0
+                            self.flags[-1][start:end] = 0
+                i += 1
+        self.prev_prob = prob
+        self.flags.append(flags)
+        return prob
+
+
+class LoopClosureDetector:
+    """The keyframe descriptor database of the host-loop systems, with
+    salient-score candidate selection (ref: MildLCDetector.cpp:7-44).
+
+    The database lives on `device` as capacity-padded tensors, (K_CAP, F, 8)
+    int32 descriptor words and (K_CAP, F) validity, K_CAP doubling when
+    full. A query scores the whole padded database through
+    `mild_feature_scores` (on the card, the Hamming kernel's MILD launch:
+    one launch a query, or a batch of queries), and the host reads the
+    similarity vector back in one copy for the numpy statistics."""
+
+    def __init__(self, feature_capacity: int = 512, initial_keyframes: int = 64, temporal: bool = False,
+                 device: str | torch.device = "cuda"):
+        self.device = torch.device(device)
+        self.fcap = feature_capacity
+        self.kcap = initial_keyframes
+        self.db = torch.zeros((self.kcap, feature_capacity, 8), dtype=torch.int32, device=self.device)
+        self.db_valid = torch.zeros((self.kcap, feature_capacity), dtype=torch.bool, device=self.device)
+        self.num_keyframes = 0
+        self.temporal = BayesianTemporalFilter() if temporal else None
+
+    def insert(self, desc: torch.Tensor, valid: torch.Tensor) -> int:
+        """Add a keyframe's first `feature_capacity` descriptors; returns its index."""
+        k = self.num_keyframes
+        if k == self.kcap:
+            self.db = torch.cat([self.db, torch.zeros_like(self.db)])
+            self.db_valid = torch.cat([self.db_valid, torch.zeros_like(self.db_valid)])
+            self.kcap *= 2
+        n = min(desc.shape[0], self.fcap)
+        self.db[k].zero_()
+        self.db_valid[k].zero_()
+        self.db[k, :n] = desc[:n].to(self.device)
+        self.db_valid[k, :n] = valid[:n].to(self.device)
+        self.num_keyframes += 1
+        return k
+
+    def _scores(self, q_desc: torch.Tensor, q_valid: torch.Tensor) -> torch.Tensor:
+        """(..., K_CAP) tf-idf scores of queries (..., N, 8) against the
+        padded database: one `mild_feature_scores` call for all of them.
+        Rows past the stored keyframes hold no valid feature, so they score
+        0 with or without work: g = num_keyframes skips them."""
+        lead, n = q_desc.shape[:-2], q_desc.shape[-2]
+        fs = mild_feature_scores(q_desc.reshape(-1, 8).contiguous(), q_valid.reshape(-1).contiguous(),
+                                 self.db, self.db_valid, self.num_keyframes)
+        return _tfidf(fs.reshape(*lead, n, self.kcap), q_valid, float(self.num_keyframes))
+
+    def similarity(self, desc: torch.Tensor, valid: torch.Tensor) -> np.ndarray:
+        """(num_keyframes,) tf-idf similarity of a query frame, read back in one copy."""
+        k = self.num_keyframes
+        if k == 0:
+            return np.zeros(0, np.float32)
+        return self._scores(desc, valid)[:k].cpu().numpy()
+
+    def similarity_batch(self, descs: torch.Tensor, valids: torch.Tensor) -> np.ndarray:
+        """(Q, num_keyframes) scores of Q query frames (Q, N, 8): one launch
+        and one copy for the batch."""
+        k = self.num_keyframes
+        if k == 0:
+            return np.zeros((descs.shape[0], 0), np.float32)
+        return self._scores(descs, valids)[:, :k].cpu().numpy()
+
+    def candidates_from_sims(self, sims: np.ndarray, limit: int) -> list[int]:
+        """Candidates from precomputed scores, among keyframes < limit: the
+        statistics run over the whole vector, only the ordering is limited."""
+        if limit <= 0:
+            return []
+        salient = salient_scores(sims)
+        # low absolute evidence is no loop, whatever the history (ref: BayesianFilter.hpp:126-129)
+        salient = np.where(sims < MIN_SHARED_SCORE, np.minimum(salient, 1.0), salient)
+        order = np.argsort(-salient[:limit], kind="stable")
+        return [int(i) for i in order[:MAX_CANDIDATES] if salient[i] > SALIENT_THRESHOLD]
+
+    def select_candidates(self, desc: torch.Tensor, valid: torch.Tensor, exclude_recent: int = 1) -> list[int]:
+        """Keyframes likely to close a loop with this frame (salient score >
+        1.5, the top 7), the `exclude_recent` newest left out. With
+        `temporal=True` the Bayesian filter advances on every call."""
+        k = self.num_keyframes
+        if k <= exclude_recent:
+            return []
+        sims = self.similarity(desc, valid)
+        if self.temporal is not None:
+            self.temporal.update(sims)
+        return self.candidates_from_sims(sims, k - exclude_recent)

@@ -65,16 +65,26 @@ def preprocess_frame(
     levels: int = DEFAULT_LEVELS,
     min_depth: float = MIN_DEPTH,
     max_depth: float = MAX_DEPTH,
+    depth_blur: bool = True,
+    intensity_norm: bool = False,
 ) -> FramePyramid:
     """Gray/depth -> pyramids + XYZ backprojections.
 
-    Gaussian-smooths gray and depth; a pixel whose blur window touches an
-    invalid depth is invalidated (validity erosion: the blurred validity
-    mask must stay above 0.9999)."""
+    Gaussian-smooths the gray image and, with `depth_blur`, the depth; a
+    pixel whose depth blur window touches an invalid depth is invalidated
+    (validity erosion: the blurred validity mask must stay above 0.9999).
+    `intensity_norm` (the per-frame half of the reference's
+    NormalizeIntensity, DenseOdometryFunction.cpp:129-144) scales the gray
+    image so that its mean over the valid-depth pixels is 0.5."""
     g = image_ops.gaussian_blur(gray.to(torch.float32))
     d = image_ops.clip_depth(depth.to(torch.float32), min_depth, max_depth)
-    vb = image_ops.gaussian_blur((d > 0).to(torch.float32))
-    d = torch.where(vb > 0.9999, image_ops.gaussian_blur(d), 0.0)
+    if depth_blur:
+        vb = image_ops.gaussian_blur((d > 0).to(torch.float32))
+        d = torch.where(vb > 0.9999, image_ops.gaussian_blur(d), 0.0)
+    if intensity_norm:
+        m = (d > 0).to(torch.float32)
+        mean = torch.sum(g * m) / torch.clamp(torch.sum(m), min=1.0)
+        g = g * (0.5 / torch.clamp(mean, min=1e-6))
     grays = [g]
     depths = [d]
     for _ in range(levels - 1):
@@ -91,12 +101,19 @@ def dense_tracking(
     camera: PinholeCamera,
     init_T: torch.Tensor | None = None,
     iters: tuple[int, ...] = DEFAULT_ITERS,
+    depth_diff_max: float = DEPTH_DIFF_MAX,
+    pair_norm: bool = False,
 ) -> DenseTrackingResult:
     """Coarse-to-fine Gauss-Newton alignment of source onto target.
 
     iters[0] applies to the coarsest level. Counterpart of the JAX
-    package's `dense_tracking_exact` with its defaults: hybrid term, no
-    Huber weights, pair_norm=False."""
+    package's `dense_tracking_exact` with the hybrid term and no Huber
+    weights. `pair_norm` is the reference's NormalizeIntensity
+    (DenseOdometryFunction.cpp:129-144): over the identity-pose
+    correspondences (both depths valid, |dz| < depth_diff_max) at the finest
+    level, each image's scale to mean 0.5; at every level the source grays
+    and the target's gray, dx and dy are scaled by these device scalars
+    before the Gauss-Newton launches."""
     levels = len(source.grays)
     if len(iters) != levels:
         raise ValueError(f"{len(iters)} iteration counts for {levels} levels")
@@ -108,12 +125,24 @@ def dense_tracking(
     else:
         T = init_T.clone(memory_format=torch.contiguous_format)
     cams = camera.pyramid(levels)
+    if pair_norm:
+        ds, dt = source.depths[0], target.depths[0]
+        m = ((ds > 0) & (dt > 0) & (torch.abs(dt - ds) < depth_diff_max)).to(torch.float32)
+        msum = torch.clamp(torch.sum(m), min=1.0)
+        s_s = 0.5 / torch.clamp(torch.sum(source.grays[0] * m) / msum, min=1e-6)
+        s_t = 0.5 / torch.clamp(torch.sum(target.grays[0] * m) / msum, min=1e-6)
+        # gray, dx, dy of the term data scaled; depth and its gradients kept
+        t_scale = torch.cat([s_t.expand(3), torch.ones(5, device=dev)])
     for li in reversed(range(levels)):  # coarsest first
         tgt = dops.build_term_data(target.grays[li], target.depths[li], SOBEL_SCALE)
+        src_gray = source.grays[li]
+        if pair_norm:
+            tgt = dops.TermData(tgt.texels * t_scale)
+            src_gray = src_gray * s_s
         cam = cams[li]
         ne = dops.gauss_newton(
-            T, source.xyzs[li].reshape(-1, 3), source.grays[li].reshape(-1), tgt,
-            cam.fx, cam.fy, cam.cx, cam.cy, LAMBDA_HYBRID_DEPTH, DEPTH_DIFF_MAX,
+            T, source.xyzs[li].reshape(-1, 3), src_gray.reshape(-1), tgt,
+            cam.fx, cam.fy, cam.cx, cam.cy, LAMBDA_HYBRID_DEPTH, depth_diff_max,
             iters[levels - 1 - li],
         )
     rmse = torch.sqrt(ne.cost / torch.clamp(ne.num_inliers, min=1.0))

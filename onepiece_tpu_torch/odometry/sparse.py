@@ -1,9 +1,11 @@
 """Sparse feature-based RGB-D odometry.
 
 Port of `onepiece_tpu/odometry/sparse.py` (`SparseFrame`,
-`SparseTrackingResult`, `TrackingSummary`, `extract_sparse_frame`,
-`extract_sparse_frames_batch`, `_match_and_estimate`, `sparse_tracking`,
-`_track_summary_inner`, `se3_inverse`): FAST/BRIEF features backprojected
+`SparseTrackingResult`, `TrackingSummary`, `ChunkScanOut`,
+`extract_sparse_frame`, `extract_sparse_frames_batch`,
+`_match_and_estimate`, `sparse_tracking`, `sparse_tracking_with_summary`,
+`_track_summary_inner`, `sparse_chunk_scan`, `track_pairs_batch`,
+`se3_inverse`): FAST/BRIEF features backprojected
 with the depth, descriptor matching with the ratio test, five RanSaPC
 pairwise-consistency rounds, depth-normalised RANSAC, then a pose-guided
 windowed re-match and a second RANSAC; the round with more inliers wins.
@@ -13,7 +15,9 @@ anchors and hypotheses instead (the tests feed the JAX package's). The JAX
 package gates the second round behind a `lax.cond` on `rematch_below`; here
 both rounds always run and the gate selects with `torch.where`, so no host
 read is needed, and where the gate skips round 2 its result is round 1's,
-exactly as the cond returns it.
+exactly as the cond returns it. The chunk scan and the pair batch, one
+`lax.scan` and one `lax.map` program there, are Python loops over device
+tensors here that read nothing on the host.
 """
 
 from __future__ import annotations
@@ -63,6 +67,21 @@ class TrackingSummary(NamedTuple):
     rmse: torch.Tensor
     num_inliers: torch.Tensor
     disparity: torch.Tensor  # () average pixel disparity over inlier matches
+
+
+class ChunkScanOut(NamedTuple):
+    """Per-frame outputs of the keyframe-selection scan (leading K axis)."""
+
+    T_world: torch.Tensor  # (K, 4, 4)
+    is_kf: torch.Tensor  # (K,) bool
+    success: torch.Tensor  # (K,) bool
+    rmse: torch.Tensor  # (K,)
+    disparity: torch.Tensor  # (K,)
+    corr_src: torch.Tensor  # (K, N, 3) against the frame's tracking keyframe
+    corr_dst: torch.Tensor  # (K, N, 3)
+    corr_valid: torch.Tensor  # (K, N)
+    corr_idx: torch.Tensor  # (K, N) matched keypoint index in the frame
+    promote_prev: torch.Tensor  # (K,) bool: frame i-1 promoted when frame i lost tracking
 
 
 class Draws(NamedTuple):
@@ -190,6 +209,84 @@ def _track_summary_inner(
     vf = res.corr_valid.to(torch.float32)
     disp = torch.sum(d * vf) / torch.clamp(torch.sum(vf), min=1.0)
     return res, TrackingSummary(res.T_ts, res.success, res.rmse, res.num_inliers, disp)
+
+
+def sparse_tracking_with_summary(
+    source: SparseFrame,
+    target: SparseFrame,
+    camera: PinholeCamera,
+    generator: torch.Generator | None = None,
+    draws: Draws | None = None,
+) -> tuple[SparseTrackingResult, TrackingSummary]:
+    """`sparse_tracking` and its scalar summary, both left on the device.
+    Draws come from `draws`, else from `generator`, else from a generator
+    seeded 0 on the frames' device."""
+    if generator is None and draws is None:
+        generator = torch.Generator(device=source.points.device).manual_seed(0)
+    return _track_summary_inner(generator, source, target, camera, draws=draws)
+
+
+def sparse_chunk_scan(
+    kf_frame: SparseFrame,  # the current keyframe at chunk entry
+    kf_pose: torch.Tensor,  # (4, 4) world-from-keyframe
+    frames: SparseFrame,  # leaves with a leading K axis
+    camera: PinholeCamera,
+    generator: torch.Generator | None,
+    keyframe_disparity: float,
+    draws: list[Draws] | None = None,  # per frame, instead of the generator's
+) -> tuple[tuple[SparseFrame, torch.Tensor], ChunkScanOut]:
+    """Track a chunk of frames against the running keyframe and select
+    keyframes, with no host read (ref: FBASlam.cpp:5-139).
+
+    The carry is the keyframe (frame and pose), the previous frame and its
+    pose: a frame that tracks becomes the keyframe when its inlier
+    disparity reaches `keyframe_disparity`, and a frame that loses tracking
+    keeps the last pose and promotes the previous frame, if that one
+    tracked, so the next frame has a near reference (the reference exits
+    there, ref: FBASlam.cpp:124-128). Each promotion selects the carry with
+    `torch.where`. Returns ((keyframe, its pose) at the chunk's end, the
+    per-frame outputs)."""
+    thr = float(keyframe_disparity)
+    kf, kfp = kf_frame, kf_pose
+    prev_frame, prev_T = map_frame(lambda a: a[0], frames), kf_pose  # unused while prev_ok is false
+    prev_ok = torch.zeros((), dtype=torch.bool, device=kf_pose.device)
+    last_T = kf_pose
+    outs = []
+    for i in range(frames.points.shape[0]):
+        frame_i = map_frame(lambda a: a[i], frames)
+        res, summ = _track_summary_inner(generator, kf, frame_i, camera,
+                                         draws=None if draws is None else draws[i])
+        ok = summ.success
+        promote_prev = ~ok & prev_ok
+        kf = zip_frames(lambda a, b: torch.where(promote_prev, a, b), prev_frame, kf)
+        kfp = torch.where(promote_prev, prev_T, kfp)
+        T_world = torch.where(ok, kfp @ se3_inverse(summ.T_ts), last_T)
+        is_kf = ok & (summ.disparity >= thr)
+        kf = zip_frames(lambda a, b: torch.where(is_kf, a, b), frame_i, kf)
+        kfp = torch.where(is_kf, T_world, kfp)
+        prev_frame, prev_T, prev_ok, last_T = frame_i, T_world, ok, T_world
+        outs.append((T_world, is_kf, ok, summ.rmse, summ.disparity, res.corr_src, res.corr_dst,
+                     res.corr_valid, res.corr_idx, promote_prev))
+    return (kf, kfp), ChunkScanOut(*(torch.stack(x) for x in zip(*outs)))
+
+
+def track_pairs_batch(
+    sources: SparseFrame,  # leaves with a leading P axis
+    targets: SparseFrame,
+    camera: PinholeCamera,
+    generators: list[torch.Generator] | None = None,  # one per pair
+    draws: list[Draws] | None = None,  # one per pair, instead of the generators'
+) -> tuple[SparseTrackingResult, TrackingSummary]:
+    """Track P (source, target) pairs, each as `_track_summary_inner`;
+    results and summaries stacked along a leading P axis, on the device."""
+    outs = []
+    for p in range(sources.points.shape[0]):
+        outs.append(_track_summary_inner(
+            None if generators is None else generators[p], map_frame(lambda a: a[p], sources),
+            map_frame(lambda a: a[p], targets), camera, draws=None if draws is None else draws[p]))
+    res, summ = zip(*outs)
+    return (SparseTrackingResult(*(torch.stack(x) for x in zip(*res))),
+            TrackingSummary(*(torch.stack(x) for x in zip(*summ))))
 
 
 def se3_inverse(T: torch.Tensor) -> torch.Tensor:

@@ -28,21 +28,21 @@ _ROWS = 256  # query rows per block of the plain version's (rows, M, 8) table
 
 
 def _popcount32(x: torch.Tensor) -> torch.Tensor:
-    """Bit count of the low 32 bits of each int64 entry (SWAR)."""
-    x = x & 0xFFFFFFFF
+    """Bit count of each int32 entry (SWAR, in int32: the arithmetic shifts'
+    sign bits are masked off, and no step overflows)."""
     x = x - ((x >> 1) & 0x55555555)
     x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
     x = (x + (x >> 4)) & 0x0F0F0F0F
-    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+    x = x + (x >> 8)
+    return (x + (x >> 16)) & 0x3F
 
 
 def hamming_table_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(N, 8) x (M, 8) int32 -> (N, M) int32 distances."""
-    bw = b.to(torch.int64)
     out = []
     for s in range(0, a.shape[0], _ROWS):
-        x = a[s : s + _ROWS, None, :].to(torch.int64) ^ bw[None]
-        out.append(_popcount32(x).sum(-1).to(torch.int32))
+        x = a[s : s + _ROWS, None, :] ^ b[None]
+        out.append(_popcount32(x).sum(-1, dtype=torch.int32))
     if not out:
         return torch.zeros((0, b.shape[0]), dtype=torch.int32, device=a.device)
     return torch.cat(out)

@@ -1,8 +1,9 @@
-"""RANSAC with all hypotheses at once: rigid 3D-3D alignment and the
-pairwise-consistency filter (RanSaPC).
+"""RANSAC with all hypotheses at once: rigid 3D-3D alignment, planes, the
+pairwise-consistency filter (RanSaPC) and the homography filter of pixel
+matches.
 
 Port of `onepiece_tpu/ops/ransac.py` (`_sample_indices`, `ransac_rigid`,
-`ransapc_filter`). Every hypothesis is drawn up front (Gumbel top-k from an
+`ransac_plane`, `ransapc_filter`, `homography_filter`). Every hypothesis is drawn up front (Gumbel top-k from an
 explicit `torch.Generator`), scored with one batched transform and the best
 one is refit; nothing depends on the data to decide what runs next.
 
@@ -114,3 +115,72 @@ def ransapc_filter(
     consistent = torch.abs(ds - dd) < tolerance
     votes = torch.sum(consistent & valid[samples][None, :], dim=-1)
     return valid & (votes >= RANSAPC_MIN_VOTES)
+
+
+def ransac_plane(
+    generator: torch.Generator | None,
+    points: torch.Tensor,  # (N, 3)
+    valid: torch.Tensor,  # (N,) bool
+    threshold: float = 0.02,
+    num_hypotheses: int = 256,
+    samples: torch.Tensor | None = None,  # (H, 3) indices instead of drawing
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plane RANSAC (ref: Ransac.cpp:42-77 `FitPlaneRANSAC`): a plane through
+    each sampled triple, the one with most points within `threshold` refit
+    on its inliers. Returns (plane (4,) [n | d], inlier mask (N,))."""
+    if samples is None:
+        samples = sample_indices(generator, valid, num_hypotheses, 3)
+    planes = transforms.fit_plane(points[samples])  # (H, 4)
+    d = torch.abs(torch.einsum("hi,ni->hn", planes[:, :3], points) + planes[:, 3:4])
+    inl = (d < threshold) & valid[None, :]
+    best = torch.argmax(torch.sum(inl, dim=-1)).reshape(1)
+    plane = transforms.fit_plane(points, inl.index_select(0, best)[0].to(points.dtype))
+    return plane, (torch.abs(points @ plane[:3] + plane[3]) < threshold) & valid
+
+
+def homography_filter(
+    generator: torch.Generator | None,
+    uv_src: torch.Tensor,  # (N, 2) source pixels
+    uv_dst: torch.Tensor,  # (N, 2) matched target pixels
+    valid: torch.Tensor,  # (N,) bool
+    threshold: float = 6.0,
+    num_hypotheses: int = 256,
+    samples: torch.Tensor | None = None,  # (H, 4) indices instead of drawing
+) -> torch.Tensor:
+    """Homography-RANSAC filter of pixel matches (ref:
+    SparseOdometryFunction.h:102-127 `OutlierFilter::Ransac`,
+    cv::findHomography with the 6 px REPROJECTION_ERROR_2D_THRESHOLD).
+
+    The points are normalised by the valid points' centroid and mean
+    distance; each 4-point hypothesis is the null vector of its 8x9 DLT
+    system (the smallest eigenvector of A^T A, batched); a match is an
+    inlier when its transfer error, back in pixels, is below `threshold`.
+    Returns the best hypothesis' inlier mask, or the input mask when no
+    hypothesis keeps max(4, valid / 4) matches (where findHomography fails
+    and the reference keeps the matches unfiltered)."""
+    vw = valid.to(torch.float32)
+    n_valid = torch.clamp(torch.sum(vw), min=1.0)
+    center = torch.sum(torch.cat([uv_src, uv_dst], 0) * torch.cat([vw, vw])[:, None], dim=0) / (2.0 * n_valid)
+    mean_dist = torch.sum((torch.linalg.vector_norm(uv_src - center, dim=-1)
+                           + torch.linalg.vector_norm(uv_dst - center, dim=-1)) * vw) / (2.0 * n_valid)
+    scale = 1.0 / torch.clamp(mean_dist, min=1e-6)
+    s_n = (uv_src - center) * scale
+    d_n = (uv_dst - center) * scale
+    if samples is None:
+        samples = sample_indices(generator, valid, num_hypotheses, 4)
+    x, y = s_n[samples, 0], s_n[samples, 1]  # (H, 4)
+    u, v = d_n[samples, 0], d_n[samples, 1]
+    z, o = torch.zeros_like(x), torch.ones_like(x)
+    r1 = torch.stack([-x, -y, -o, z, z, z, u * x, u * y, u], -1)
+    r2 = torch.stack([z, z, z, -x, -y, -o, v * x, v * y, v], -1)
+    A = torch.cat([r1, r2], dim=1)  # (H, 8, 9)
+    Hs = torch.linalg.eigh(A.transpose(-1, -2) @ A)[1][..., :, 0].reshape(-1, 3, 3)
+    src_h = torch.cat([s_n, torch.ones_like(s_n[:, :1])], dim=-1)  # (N, 3)
+    proj = torch.einsum("hij,nj->hni", Hs, src_h)
+    wz = torch.where(torch.abs(proj[..., 2]) > 1e-8, proj[..., 2], 1e-8)
+    err = torch.linalg.vector_norm(proj[..., :2] / wz[..., None] - d_n[None], dim=-1) / scale
+    inl = (err < threshold) & valid[None]
+    counts = torch.sum(inl, dim=-1)
+    best = torch.argmax(counts).reshape(1)
+    ok = counts.index_select(0, best)[0] >= torch.clamp(torch.sum(valid) // 4, min=4)
+    return torch.where(ok, inl.index_select(0, best)[0], valid)

@@ -98,18 +98,19 @@ def optimize_pose_graph(
     return poses, cost
 
 
-def build_edges(edge_list: list[dict], corr_capacity: int, device: str | torch.device = "cpu") -> PoseGraphEdges:
+def build_edges(edge_list: list[dict], corr_capacity: int, num_edges_cap: int | None = None,
+                device: str | torch.device = "cpu") -> PoseGraphEdges:
     """Pack a list of edges {"src", "dst", "p_src" (C_i, 3), "p_dst" (C_i, 3)}
     into padded tensors on `device`: correspondences truncated or padded to
-    `corr_capacity`."""
-    cap_e = max(len(edge_list), 1)
+    `corr_capacity`, edges padded (or cut) to `num_edges_cap`."""
+    cap_e = num_edges_cap or max(len(edge_list), 1)
     src = np.zeros(cap_e, np.int64)
     dst = np.zeros(cap_e, np.int64)
     ps = np.zeros((cap_e, corr_capacity, 3), np.float32)
     pd = np.zeros((cap_e, corr_capacity, 3), np.float32)
     val = np.zeros((cap_e, corr_capacity), bool)
     edge_valid = np.zeros(cap_e, bool)
-    for i, ed in enumerate(edge_list):
+    for i, ed in enumerate(edge_list[:cap_e]):
         c = min(len(ed["p_src"]), corr_capacity)
         src[i], dst[i] = ed["src"], ed["dst"]
         ps[i, :c] = ed["p_src"][:c]

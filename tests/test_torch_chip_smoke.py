@@ -1,13 +1,16 @@
 """`chip_smoke.py` refuses to report success where it cannot run the port's
 kernels: on a machine without CUDA, and alone in a directory without the
-rest of the repository."""
+rest of the repository; its phase-13 accuracy check fails a tracker that
+stops; and the tool behind that check's bars runs the port without JAX."""
 
+import json
 import os
 import shutil
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -36,3 +39,67 @@ def test_chip_smoke_alone_fails(tmp_path):
     res = _run(tmp_path)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def _loop_with_frozen_rotation(gt):
+    est = np.tile(np.eye(4), (len(gt), 1, 1))
+    est[:, :3, 3] = gt[:, :3, 3]
+    return est
+
+
+@pytest.mark.parametrize("case", ["ground truth", "never moves", "rotation stops", "ATE over its bar", "no loop link"])
+def test_host_loop_check_separates_a_tracker_from_one_that_stops(case):
+    """Phase 13's accuracy check (`chip_smoke.host_loop_check`) on the
+    100-frame loop: the ground truth passes; a camera that never moves, one
+    whose rotation stops (ATE 0), a path stretched past the ATE bar, and a
+    loop without a loop-closure link each fail."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    from onepiece_tpu_torch.utils import synthetic
+
+    gt = synthetic.loop_trajectory(chip_smoke.LOOP_FRAMES).astype(np.float64)
+    cell = "BASlam loop"
+    est, lc = gt, 1
+    if case == "never moves":
+        est = np.tile(np.eye(4), (len(gt), 1, 1))
+    elif case == "rotation stops":
+        est = _loop_with_frozen_rotation(gt)
+    elif case == "ATE over its bar":
+        est = gt.copy()
+        est[:, :3, 3] *= 2.0
+    elif case == "no loop link":
+        lc = 0
+    if case == "ground truth":
+        r = chip_smoke.host_loop_check(cell, chip_smoke.MAX_LOOP_ATE_M, est, gt, 0, lc)
+        assert r["ate_m"] < 1e-6 and r["rpe_span_deg"] < 1e-3
+    else:
+        with pytest.raises(AssertionError):
+            chip_smoke.host_loop_check(cell, chip_smoke.MAX_LOOP_ATE_M, est, gt, 0, lc)
+
+
+def test_ate_gap_tool_runs_the_port_without_jax():
+    """`tools/host_loop_ate_gap.py --packages port` (what runs on the card's
+    machine, which has no JAX) with the JAX packages blocked, at 80x60 on a
+    9-frame orbit: BASlam at two seeds, and a camera that never moves."""
+    argv = ["--packages", "port", "--level", "3", "--orbit-frames", "9", "--cells", "BASlam orbit", "--seeds", "0", "1"]
+    code = (
+        "import sys, importlib.abc\n"
+        "class NoJax(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'onepiece_tpu'):\n"
+        "            raise ImportError(name + ' is blocked')\n"
+        "sys.meta_path.insert(0, NoJax())\n"
+        "import runpy, torch\n"
+        "torch.set_num_threads(1)\n"
+        f"sys.argv = ['host_loop_ate_gap.py', *{argv!r}]\n"
+        f"runpy.run_path({str(REPO / 'tools' / 'host_loop_ate_gap.py')!r}, run_name='__main__')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert set(out["runs"]) == {"BASlam orbit"}
+    for cell in out["runs"].values():
+        assert set(cell) == {"port"} and all(len(v) == 2 for v in cell["port"].values())
+        assert np.isfinite(cell["port"]["ate_m"]).all()
+    assert out["frozen"]["orbit"]["rpe_span_deg"] > 0

@@ -1065,3 +1065,64 @@ def test_ba_test_tool_on_the_card(dev):
     assert card["rms_px"] <= 2 * 0.5 and abs(card["rms_px"] - cpu["rms_px"]) <= 0.1 * cpu["rms_px"]
     assert np.isfinite(card["pose_err"])
     assert torch_ba_test.main(["--mode", "posegraph"])["pose_err"] <= 1e-4
+
+
+def test_loop_closure_detector_kernel_vs_plain(dev):
+    """The host-loop LoopClosureDetector on the card (MILD's kernel, one
+    launch a query or a batch of queries) against the same database on the
+    CPU (the plain version), past a capacity doubling: scores within 1e-5
+    relative, candidate lists equal."""
+    rng = np.random.default_rng(3)
+    n_feat = 500
+    kfs = [rng.integers(0, 2**32, (n_feat, 8), dtype=np.uint64).astype(np.uint32).view(np.int32) for _ in range(70)]
+    for k in range(40, 70):  # revisits of keyframes 0-29 with a few bits flipped
+        kfs[k] = kfs[k - 40] ^ (rng.random((n_feat, 8)) < 0.01).astype(np.int32)
+    valid = torch.from_numpy(rng.random(n_feat) > 0.2)
+    lcds = {d: mild.LoopClosureDetector(device=d) for d in (dev, torch.device("cpu"))}
+    for d, lcd in lcds.items():
+        for kf in kfs:
+            lcd.insert(torch.from_numpy(kf).to(d), valid.to(d))
+    q = torch.from_numpy(np.stack(kfs[60:64]))
+    qv = torch.ones((4, n_feat), dtype=torch.bool)
+    _build.reset_launch_counts()
+    s_k = lcds[dev].similarity(q[0].to(dev), qv[0].to(dev))
+    b_k = lcds[dev].similarity_batch(q.to(dev), qv.to(dev))
+    assert _build.HAMMING.launches == 2 and lcds[dev].kcap == 128
+    s_p = lcds[torch.device("cpu")].similarity(q[0], qv[0])
+    b_p = lcds[torch.device("cpu")].similarity_batch(q, qv)
+    assert np.abs(s_k - s_p).max() <= 1e-5 * np.abs(s_p).max()
+    assert np.abs(b_k - b_p).max() <= 1e-5 * np.abs(b_p).max()
+    for i in range(4):
+        ck = lcds[dev].candidates_from_sims(b_k[i], 69)
+        assert ck == lcds[torch.device("cpu")].candidates_from_sims(b_p[i], 69) and 20 + i in ck
+
+
+@pytest.mark.parametrize("mode", ["update_frame", "process_chunk"])
+def test_baslam_on_the_card_repeats_bit_for_bit(dev, frames, mode):
+    """The host-loop BASlam at 160x120 on the card: the Hamming and BA Schur
+    kernels launch, the trajectory is finite and close to the ground truth,
+    and a second run is bit-equal (poses, world points, observations)."""
+    from onepiece_tpu_torch.systems.baslam import BASlam
+
+    poses, grays, depths = frames
+
+    def one():
+        s = BASlam(CAM, device=dev, max_keypoints=500, keyframe_disparity=10.0)
+        if mode == "update_frame":
+            for g, d in zip(grays, depths):
+                s.update_frame(g, d)
+        else:
+            s.process_chunk(grays, depths)
+        return s
+
+    _build.reset_launch_counts()
+    a = one()
+    assert a.optimize() is not None
+    assert _build.BA_SCHUR.launches > 0 and _build.HAMMING.launches >= len(grays) - 1
+    b = one()
+    b.optimize()
+    est = a.trajectory()
+    assert np.isfinite(est).all() and traj.ate_rmse(est, poses) < 0.05
+    assert np.array_equal(est, b.trajectory())
+    assert np.array_equal(np.stack(a.world_points), np.stack(b.world_points))
+    assert a.observations == b.observations

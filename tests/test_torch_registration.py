@@ -453,3 +453,33 @@ def test_pose_graph_matches_jax_with_repeated_edges():
     assert abs(float(ct) - float(cj)) <= 1e-5 * max(1.0, float(cj))
     assert np.abs(N(ot)[:, :3, 3] - gt[:, :3, 3]).max() < np.abs(poses0[:, :3, 3] - gt[:, :3, 3]).max()
     np.testing.assert_array_equal(N(ot)[0], poses0[0])  # gauge: pose 0 fixed
+
+
+@pytest.mark.parametrize("num_edges_cap", [16, 6])
+def test_pose_graph_padded_as_fbaslam_pads_matches_jax(num_edges_cap):
+    """`build_edges(num_edges_cap=)`: edges padded to the cap (16) or cut to
+    it (6), with the poses padded by identities to a power of two, as the
+    JAX package's host-loop FBASlam pads them."""
+    rng = np.random.default_rng(13)
+    xi_gt = (rng.normal(size=(5, 6)) * 0.3).astype(np.float32)
+    xi_gt[0] = 0
+    gt = np.asarray(jse3.se3_exp(jnp.asarray(xi_gt)))
+    poses0 = np.tile(np.eye(4, dtype=np.float32), (8, 1, 1))
+    poses0[:5] = np.einsum("nij,njk->nik", np.asarray(jse3.se3_exp(jnp.asarray(
+        np.concatenate([np.zeros((1, 6)), rng.normal(size=(4, 6)) * 0.02]).astype(np.float32)))), gt)
+    edge_list = []
+    for s, d in [(1, 0), (2, 1), (3, 2), (4, 3), (4, 0), (3, 1), (2, 0), (4, 2)]:
+        p = rng.normal(size=(int(rng.integers(40, 90)), 3)).astype(np.float32)
+        Tsd = np.linalg.inv(gt[d]) @ gt[s]
+        q = (p @ Tsd[:3, :3].T + Tsd[:3, 3] + rng.normal(size=p.shape) * 0.002).astype(np.float32)
+        edge_list.append({"src": s, "dst": d, "p_src": p, "p_dst": q})
+    ej = jpg.build_edges(edge_list, corr_capacity=64, num_edges_cap=num_edges_cap)
+    et = tpg.build_edges(edge_list, corr_capacity=64, num_edges_cap=num_edges_cap)
+    assert et.src.shape == (num_edges_cap,) and int(et.edge_valid.sum()) == min(8, num_edges_cap)
+    for a, b in zip(et, ej):
+        np.testing.assert_array_equal(N(a), np.asarray(b))
+    oj, cj = jpg.optimize_pose_graph(jnp.asarray(poses0), ej, iters=5)
+    ot, ct = tpg.optimize_pose_graph(T(poses0), et, iters=5)
+    np.testing.assert_allclose(N(ot), np.asarray(oj), atol=1e-5)
+    assert abs(float(ct) - float(cj)) <= 1e-5 * max(1.0, float(cj))
+    np.testing.assert_array_equal(N(ot)[5:], poses0[5:])  # the padding poses stay identities

@@ -26,6 +26,8 @@ from onepiece_tpu_torch.odometry import sparse as tsparse
 from onepiece_tpu_torch.ops import ransac as transac
 from onepiece_tpu_torch.utils import synthetic
 
+from onepiece_tpu.systems.fbaslam import FBASlam as JFBASlam
+
 CAM = TUM_CAMERA.pyramid(3)[2]  # 160x120
 JCAM160 = JCAM.next_pyramid_level().next_pyramid_level()
 HYP = 256
@@ -47,8 +49,9 @@ def frames():
     return fj, ft
 
 
-def _jax_draws(key, src, tgt):
-    """The draws the JAX package's `_match_and_estimate` makes, as the port's Draws."""
+def _jax_draws(key, src, tgt, hyp=HYP):
+    """The draws the JAX package's `_match_and_estimate` makes with `hyp`
+    hypotheses, as the port's Draws."""
     keys = jax.random.split(key, jsparse.RANSAPC_ROUNDS + 2)
     idx, ok = jham.match_descriptors(src.kp.desc, src.valid, tgt.kp.desc, tgt.valid)
     dst = tgt.points[idx]
@@ -57,12 +60,12 @@ def _jax_draws(key, src, tgt):
     for r in range(jsparse.RANSAPC_ROUNDS):
         anchors.append(np.asarray(jransac._sample_indices(keys[r], ok, 1, 8)[0]))
         ok = jransac.ransapc_filter(keys[r], src.points, dst, ok)
-    round1 = np.asarray(jransac._sample_indices(keys[-2], ok, HYP, jsparse.RANSAC_SAMPLES))
+    round1 = np.asarray(jransac._sample_indices(keys[-2], ok, hyp, jsparse.RANSAC_SAMPLES))
     res1 = jransac.ransac_rigid(keys[-2], src.points, dst, ok, threshold=jsparse.RANSAC_THRESHOLD,
-                                num_hypotheses=HYP, sample_size=jsparse.RANSAC_SAMPLES, norm_z=src.points[:, 2])
+                                num_hypotheses=hyp, sample_size=jsparse.RANSAC_SAMPLES, norm_z=src.points[:, 2])
     uv_pred, _ = JCAM160.project(src.points @ res1.T[:3, :3].T + res1.T[:3, 3])
     idx2, ok2 = jham.match_descriptors_windowed(src.kp.desc, src.valid, tgt.kp.desc, tgt.valid, uv_pred, tgt.kp.uv)
-    round2 = np.asarray(jransac._sample_indices(keys[-1], ok2 & tgt.valid[idx2], HYP, jsparse.RANSAC_SAMPLES))
+    round2 = np.asarray(jransac._sample_indices(keys[-1], ok2 & tgt.valid[idx2], hyp, jsparse.RANSAC_SAMPLES))
     as_t = lambda a: torch.from_numpy(np.asarray(a, np.int64))  # noqa: E731
     return tsparse.Draws(as_t(np.stack(anchors)), as_t(round1), as_t(round2)), int(res1.num_inliers)
 
@@ -123,3 +126,169 @@ def test_ransapc_defaults_match_jax():
 def test_se3_inverse_matches_jax():
     T = synthetic.orbit_trajectory(5)[3].astype(np.float32)
     assert np.abs(tsparse.se3_inverse(torch.from_numpy(T)).numpy() - np.asarray(jsparse.se3_inverse(T))).max() < 1e-7
+
+
+# ---- the host-loop systems' tracking entry points ---------------------------
+
+SCAN_FRAMES = 7  # the keyframe, then a chunk of 6
+SCAN_DISPARITY = 10.0
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while the module runs (the test workers share the
+    host's cores)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def orbit7():
+    """Frames 0-6 of the 12-frame orbit at 160x120, extracted by both
+    packages (500 keypoints, FAST threshold 0.01)."""
+    poses = synthetic.orbit_trajectory(12)
+    scene = synthetic.default_scene()
+    out = [synthetic.render(scene, torch.from_numpy(poses[i]), CAM.fx, CAM.fy, CAM.cx, CAM.cy,
+                            CAM.height, CAM.width, num_steps=64) for i in range(SCAN_FRAMES)]
+    grays = np.stack([o[1].numpy() for o in out])
+    depths = np.stack([o[0].numpy() for o in out])
+    fj = jsparse.extract_sparse_frames_batch(jnp.asarray(grays), jnp.asarray(depths), JCAM160,
+                                             max_keypoints=500, threshold=0.01)
+    ft = tsparse.extract_sparse_frames_batch(torch.from_numpy(grays), torch.from_numpy(depths), CAM,
+                                             max_keypoints=500, threshold=0.01)
+    return grays, depths, fj, ft
+
+
+def test_single_frame_extractor_matches_jax():
+    """The port's `extract_sparse_frame` (the batch path on one frame: the
+    batch blur, a stable sort) against the JAX package's single-frame
+    function (`features.detect_and_describe`: `image_ops.gaussian_blur`, an
+    exact `lax.top_k`), at the host-loop systems' settings."""
+    cam_j = JCAM160
+    poses = synthetic.orbit_trajectory(10)
+    scene = synthetic.default_scene()
+    for i in (0, 4, 9):
+        d, g = synthetic.render(scene, torch.from_numpy(poses[i]), CAM.fx, CAM.fy, CAM.cx, CAM.cy,
+                                CAM.height, CAM.width, num_steps=64)
+        for threshold in (0.03, 0.01):
+            fj = jsparse.extract_sparse_frame(jnp.asarray(g.numpy()), jnp.asarray(d.numpy()), cam_j,
+                                              max_keypoints=1000, threshold=threshold)
+            ft = tsparse.extract_sparse_frame(g, d, CAM, max_keypoints=1000, threshold=threshold)
+            v = np.asarray(fj.kp.valid)
+            assert v.sum() > 50
+            assert np.array_equal(ft.kp.uv.numpy(), np.asarray(fj.kp.uv))
+            assert np.array_equal(ft.kp.valid.numpy(), v)
+            assert np.array_equal(ft.kp.score.numpy(), np.asarray(fj.kp.score))
+            assert np.array_equal(ft.kp.desc.numpy().view(np.uint32)[v], np.asarray(fj.kp.desc)[v])
+            assert np.array_equal(ft.valid.numpy(), np.asarray(fj.valid))
+            assert np.array_equal(ft.points.numpy(), np.asarray(fj.points))
+
+
+def _assert_track_equal(rt, st, rj, sj, tol=1e-5):
+    assert int(rt.num_inliers) == int(rj.num_inliers) and bool(st.success) == bool(sj.success)
+    assert np.abs(rt.T_ts.numpy() - np.asarray(rj.T_ts)).max() < tol
+    v = np.asarray(rj.corr_valid)
+    assert np.array_equal(rt.corr_valid.numpy(), v)
+    assert np.array_equal(rt.corr_idx.numpy()[v], np.asarray(rj.corr_idx)[v])
+    assert abs(float(st.rmse) - float(sj.rmse)) < 1e-5 * max(1.0, float(sj.rmse))
+    assert abs(float(st.disparity) - float(sj.disparity)) < 1e-3
+
+
+def test_tracking_with_summary_matches_jax(orbit7):
+    _, _, fj, ft = orbit7
+    src, tgt = (jax.tree.map(lambda a: a[i], fj) for i in (0, 2))
+    src_t, tgt_t = (tsparse.map_frame(lambda a: a[i], ft) for i in (0, 2))
+    key = jax.random.PRNGKey(11)
+    draws, _ = _jax_draws(key, src, tgt, hyp=jsparse.RANSAC_HYPOTHESES)
+    rj, sj = jsparse.sparse_tracking_with_summary(src, tgt, JCAM160, key)
+    rt, st = tsparse.sparse_tracking_with_summary(src_t, tgt_t, CAM, draws=draws)
+    assert bool(sj.success)
+    _assert_track_equal(rt, st, rj, sj)
+    # the port's own draws (a generator seeded 0) track the pair too
+    _, own = tsparse.sparse_tracking_with_summary(src_t, tgt_t, CAM)
+    assert bool(own.success) and np.abs(own.T_ts.numpy() - np.asarray(sj.T_ts)).max() < 0.02
+
+
+def test_chunk_scan_with_jax_draws_matches_jax(orbit7):
+    """`sparse_chunk_scan` over frames 1-6 from keyframe 0, each frame's
+    track fed the draws the JAX scan makes from its key splits against the
+    keyframe the JAX scan holds at that step."""
+    _, _, fj, ft = orbit7
+    kf_pose = np.eye(4, dtype=np.float32)
+    key = jax.random.PRNGKey(3)
+    frames_j = jax.tree.map(lambda a: a[1:], fj)
+    (_, kfp_j), oj = jsparse.sparse_chunk_scan(jax.tree.map(lambda a: a[0], fj), jnp.asarray(kf_pose), frames_j,
+                                               JCAM160, key, SCAN_DISPARITY)
+    is_kf, pp = np.asarray(oj.is_kf), np.asarray(oj.promote_prev)
+    draws, kf, k = [], 0, key  # kf: the chunk frame index (into fj) the scan tracks against
+    for i in range(SCAN_FRAMES - 1):
+        k, sub = jax.random.split(k)
+        draws.append(_jax_draws(sub, jax.tree.map(lambda a: a[kf], fj), jax.tree.map(lambda a: a[i + 1], fj),
+                                hyp=jsparse.RANSAC_HYPOTHESES)[0])
+        if pp[i]:
+            kf = i
+        if is_kf[i]:
+            kf = i + 1
+    (_, kfp_t), ot = tsparse.sparse_chunk_scan(tsparse.map_frame(lambda a: a[0], ft), torch.from_numpy(kf_pose),
+                                               tsparse.map_frame(lambda a: a[1:], ft), CAM, None, SCAN_DISPARITY,
+                                               draws=draws)
+    assert is_kf.sum() >= 1  # a promotion inside the chunk
+    assert np.array_equal(ot.is_kf.numpy(), is_kf)
+    assert np.array_equal(ot.success.numpy(), np.asarray(oj.success))
+    assert np.array_equal(ot.promote_prev.numpy(), pp)
+    assert np.abs(ot.T_world.numpy() - np.asarray(oj.T_world)).max() < 1e-4
+    assert np.abs(kfp_t.numpy() - np.asarray(kfp_j)).max() < 1e-4
+    v = np.asarray(oj.corr_valid)
+    assert np.array_equal(ot.corr_valid.numpy(), v)
+    assert np.array_equal(ot.corr_idx.numpy()[v], np.asarray(oj.corr_idx)[v])
+
+
+def test_chunk_scan_promotes_prev_after_a_lost_track(orbit7):
+    """A frame that cannot track (no valid point) keeps the last pose and
+    promotes the previous frame; the next frame tracks against it."""
+    _, _, _, ft = orbit7
+    frames = tsparse.map_frame(lambda a: a[1:5].clone(), ft)
+    frames.valid[2] = False  # frame 3 of the chunk sees nothing
+    gen = torch.Generator().manual_seed(0)
+    (kf, _), out = tsparse.sparse_chunk_scan(tsparse.map_frame(lambda a: a[0], ft), torch.eye(4), frames, CAM,
+                                             gen, keyframe_disparity=1e9)
+    assert out.success.tolist() == [True, True, False, True]
+    assert out.promote_prev.tolist() == [False, False, True, False]
+    assert not out.is_kf.any()
+    assert torch.equal(out.T_world[2], out.T_world[1])
+    assert torch.equal(kf.kp.desc, frames.kp.desc[1])  # chunk frame 1, promoted at step 2
+
+
+def test_track_pairs_batch_with_jax_draws(orbit7):
+    _, _, fj, ft = orbit7
+    pairs = [(0, 2), (1, 4), (3, 6), (0, 2)]
+    srcs_j = jax.tree.map(lambda a: a[jnp.asarray([s for s, _ in pairs])], fj)
+    tgts_j = jax.tree.map(lambda a: a[jnp.asarray([t for _, t in pairs])], fj)
+    keys = jax.random.split(jax.random.PRNGKey(9), len(pairs))
+    rj, sj = jsparse.track_pairs_batch(keys, srcs_j, tgts_j, JCAM160)
+    draws = [_jax_draws(keys[p], jax.tree.map(lambda a: a[s], fj), jax.tree.map(lambda a: a[t], fj),
+                        hyp=jsparse.RANSAC_HYPOTHESES)[0] for p, (s, t) in enumerate(pairs)]
+    srcs_t = tsparse.map_frame(lambda a: a[torch.tensor([s for s, _ in pairs])], ft)
+    tgts_t = tsparse.map_frame(lambda a: a[torch.tensor([t for _, t in pairs])], ft)
+    rt, st = tsparse.track_pairs_batch(srcs_t, tgts_t, CAM, draws=draws)
+    assert rt.T_ts.shape == (len(pairs), 4, 4) and st.disparity.shape == (len(pairs),)
+    for p, (s, t) in enumerate(pairs):
+        one = tuple(type(x)(*(y[p] for y in x)) for x in (rt, st))
+        _assert_track_equal(*one, *(type(x)(*(np.asarray(y)[p] for y in x)) for x in (rj, sj)))
+        # and each pair is its own `_track_summary_inner` call, bit for bit
+        r1, s1 = tsparse._track_summary_inner(None, tsparse.map_frame(lambda a: a[s], ft),
+                                              tsparse.map_frame(lambda a: a[t], ft), CAM, draws=draws[p])
+        assert all(torch.equal(a, b) for a, b in zip((*one[0], *one[1]), (*r1, *s1)))
+
+
+def test_host_loop_defaults_match_jax():
+    import inspect
+
+    from onepiece_tpu_torch.systems.fbaslam import FBASlam
+
+    p = inspect.signature(JFBASlam).parameters
+    q = inspect.signature(FBASlam).parameters
+    for name in ("max_keypoints", "fast_threshold", "keyframe_disparity"):
+        assert q[name].default == p[name].default

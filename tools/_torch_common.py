@@ -167,17 +167,30 @@ def add_sparse_args(ap: argparse.ArgumentParser, traj_name: str) -> None:
     ap.add_argument("--chunk", type=int, default=16, help="frames per process_chunk call")
 
 
-def run(slam, frames, args, gt, cam, describe) -> None:
-    """Feed a sparse system the frames chunk by chunk, then report
-    (`describe(slam)`), write the trajectory and, with --out-mesh, the mesh."""
+def run(slam, frames, args, gt, cam, describe, per_frame: bool = False, finish=None) -> None:
+    """Feed a sparse system the frames chunk by chunk (or, with `per_frame`,
+    frame by frame through its `update_frame`), then report
+    (`describe(slam)`), call `finish(slam)` if given, write the trajectory
+    and, with --out-mesh, the mesh."""
     kept: list = []
     t0 = time.perf_counter()
     n0 = slam.frame_count
-    for grays, depths in chunks(keeping(frames, n0, args.integrate_stride, kept), args.chunk, args.device):
-        print(f"chunk -> {slam.process_chunk(grays, depths)}")
+    frames = keeping(frames, n0, args.integrate_stride, kept)
+    if per_frame:
+        for _, gray, depth in frames:
+            info = slam.update_frame(torch.as_tensor(gray, dtype=torch.float32).to(args.device),
+                                     torch.as_tensor(depth, dtype=torch.float32).to(args.device))
+            if info["frame"] % 10 == 0 or info.get("keyframe"):
+                print(f"frame {info['frame']} {'KF' if info.get('keyframe') else '  '} success={info['success']} "
+                      f"disp={info.get('disparity', 0):.1f}")
+    else:
+        for grays, depths in chunks(frames, args.chunk, args.device):
+            print(f"chunk -> {slam.process_chunk(grays, depths)}")
     dt = time.perf_counter() - t0
     n = slam.frame_count - n0
     print(describe(slam) + f" in {dt:.2f}s ({n / dt:.2f} fps)")
+    if finish is not None:
+        finish(slam)
     poses = slam.trajectory()
     traj.write_matrix_trajectory(args.out_traj, poses)
     print_ate(poses, gt)
