@@ -157,8 +157,33 @@ Phases, in order; any failure exits non-zero before the final `ok` line:
      `torch_ate_sweep` (runs A-I), started together: each exits 0 (ATE
      lines, the BA rmse, PASS, nine sweep lines); phase 13's seconds and
      the script's so far
+ 14. scene analysis and visualisation on the fused gray orbit's mesh (phase
+     5's volume meshed again, deduplicated on the card: one marching-cubes
+     launch, counted): (a) `TriangleMesh` on the card and on the CPU:
+     `compute_vertex_normals`, `clustering_simplify` at 0.02 m,
+     `quadric_simplify` to 50,000 faces, `prune(min_faces=100)`, each timed
+     on both, faces equal and vertices, normals and colours within 1e-6 m;
+     the QEM vertices against the scene SDF (median < voxel); (b)
+     `render_mesh` at 640x480 of 8 turntable views and the orbit's first
+     view, each against the CPU render (at least 99.9 % of pixels equal,
+     the differing count printed), ms a view, each PNG read back equal
+     through `io/png`; (c) `detect_patches` over 30,000 sampled vertices in
+     the scene's frame, kNN at k = 12 on the card, each scene plane (floor,
+     three walls) with at least 2,000 sampled vertices within 1 cm found by
+     a patch within 5 deg and 2 cm, the kNN and the region growing timed;
+     (d) rooms: the divider case (two faces) split at x = 0 on the card,
+     `torch_room_detection`'s two-room plan giving two rooms with labels
+     equal on the card and the CPU (whether they split at the divider is
+     printed: the reference's pipeline splits that plan elsewhere); (e)
+     k-means, k-medoids and mean shift on `torch_clustering_demo`'s blobs,
+     labels equal on the card and the CPU from one start; (f) the CLIs
+     `torch_render_turntable`, `torch_mesh_tools simplify-quadric` and
+     `torch_detect_plane` on phase 11's fused.ply, `torch_read_ply rgbd`
+     on phase 11's folder, `torch_clustering_demo`, `torch_room_detection`
+     and `torch_fused_fusion --synthetic 16 --turntable`, started
+     together: each exits 0, the turntables write their PNGs and GIFs
 Prints one JSON line of per-kernel results (launches: the counted runs of
-phases 5 (gray and rgb), 7, 8 and 11 together, for hamming phases 9's and
+phases 5 (gray and rgb), 7, 8 and 14 together, for hamming phases 9's and
 13's, for ba_schur phases 10's and 13's; ms: the kernels' device time per
 wrapper call from the profiler (from CUDA events around each single call
 where the profiler records none; a note on stderr says so); event_ms and plain_ms: CUDA events around
@@ -2043,6 +2068,261 @@ def host_loop_phase(cam, dev, card, poses, grays, depths, sparse: dict, root: st
     return out
 
 
+SCENE_CELL_M = 0.02  # clustering_simplify's cell (tools/mesh_tools.py's default)
+QEM_TARGET_FACES = 50_000
+PRUNE_MIN_FACES = 100  # tools/mesh_tools.py's default
+MESH_VERTEX_TOL_M = 1e-6  # card against CPU: vertices, normals and colours
+TURNTABLE_VIEWS = 8
+MIN_PIXEL_AGREEMENT = 0.999  # render on the card against the CPU
+PLANE_SAMPLES = 30_000  # tests/test_algorithm.py:87's room scale
+PLANE_KNN = 12
+PLANE_MIN_SUPPORT = 2000  # sampled vertices within PLANE_BAND_M of a scene plane
+PLANE_BAND_M = 0.01
+PLANE_MAX_ANGLE_DEG = 5.0
+PLANE_MAX_OFFSET_M = 0.02
+PLANE_MIN_POINTS = 500  # detect_patches' min_points for the planes phase 14 asks for
+SCENE_CLI_TIMEOUT_S = 300
+SCENE_CLIS = (  # (tool, arguments; "ORBIT" is phase 11's folder, "MESH" phase 11's fused.ply; outputs in its run folder)
+    ("torch_render_turntable", ("MESH", "--frames", "4", "--out-dir", "tt_mesh", "--gif", "tt_mesh/turntable.gif")),
+    ("torch_mesh_tools", ("simplify-quadric", "MESH", "qem.ply", "--target-faces", str(QEM_TARGET_FACES))),
+    ("torch_read_ply", ("rgbd", "ORBIT/depth/0.000000.png", "--rgb", "ORBIT/rgb/0.000000.png", "--rewrite",
+                        "rgbd_cloud.ply")),
+    ("torch_clustering_demo", ("--method", "kmedoids")),
+    ("torch_detect_plane", ("MESH", "planes.ply", "--knn", str(PLANE_KNN), "--max-points", str(PLANE_SAMPLES),
+                            "--min-points", str(PLANE_MIN_POINTS))),
+    ("torch_room_detection", ()),
+    ("torch_fused_fusion", ("--synthetic", "16", "--turntable", "tt_fused", "--out-mesh", "tt_fused.ply",
+                            "--out-traj", "tt_fused.txt")),
+)
+
+
+def pixel_agreement(a: np.ndarray, b: np.ndarray) -> tuple[float, int]:
+    """(share of pixels whose every channel is equal, count of the others)
+    of two (H, W, C) images."""
+    same = (a == b).all(-1)
+    return float(same.mean()), int((~same).sum())
+
+
+def planes_found(points: np.ndarray, patches, planes: np.ndarray) -> list[dict]:
+    """For each scene plane (n, d) of planes (P, 4), n unit, n . p + d = 0:
+    its support among points (N, 3) (within PLANE_BAND_M), and the patch
+    (n, d) nearest to it in angle, its angle in degrees and its offset
+    difference; `ok` where the plane has too little support to be asked
+    for, or has a patch within PLANE_MAX_ANGLE_DEG and PLANE_MAX_OFFSET_M."""
+    out = []
+    for n, d in zip(planes[:, :3], planes[:, 3]):
+        support = int((np.abs(points @ n + d) < PLANE_BAND_M).sum())
+        cands = []  # (misses, angle, patch, offset): a matching patch first, else the nearest in angle
+        for i, p in enumerate(patches):
+            pn, pd = p.model[:3] / np.linalg.norm(p.model[:3]), p.model[3] / np.linalg.norm(p.model[:3])
+            if pn @ n < 0:
+                pn, pd = -pn, -pd
+            angle = float(np.degrees(np.arccos(np.clip(pn @ n, -1.0, 1.0))))
+            offset = float(abs(pd - d))
+            cands.append((not (angle <= PLANE_MAX_ANGLE_DEG and offset <= PLANE_MAX_OFFSET_M), angle, i, offset))
+        misses, angle, patch, offset = min(cands) if cands else (True, float("inf"), None, float("inf"))
+        asked = support >= PLANE_MIN_SUPPORT
+        out.append(dict(plane=[float(x) for x in (*n, d)], support=support, asked=asked, found=not misses,
+                        ok=not misses or not asked, patch=patch, angle_deg=angle, offset_m=offset))
+    return out
+
+
+def divider_split(labels: np.ndarray, centroids: np.ndarray) -> bool:
+    """Whether the faces left of x = 0 share one label, those right of it
+    another."""
+    left, right = set(labels[centroids[:, 0] < 0].tolist()), set(labels[centroids[:, 0] > 0].tolist())
+    return len(left) == 1 and len(right) == 1 and left != right
+
+
+def scene_phase(cam, dev, card, scene, poses, fused, root: str, t_script: float) -> dict:
+    """Phase 14: scene analysis and visualisation on the fused gray orbit's
+    mesh (the card against the CPU), plane and room detection, clustering,
+    and the slice's CLIs."""
+    from onepiece_tpu_torch import _build
+    from onepiece_tpu_torch.algorithm import clustering, dcel, rooms
+    from onepiece_tpu_torch.algorithm.patch_detection import detect_patches
+    from onepiece_tpu_torch.geometry.mesh import TriangleMesh
+    from onepiece_tpu_torch.io.png import read_png, write_png
+    from onepiece_tpu_torch.ops.knn import knn
+    from onepiece_tpu_torch.ops.mesh_dedup import dedup_triangle_soup
+    from onepiece_tpu_torch.viz.render import render_mesh, to_uint8
+
+    tools = Path(__file__).resolve().parent / "tools"
+    sys.path.insert(0, str(tools))
+    import torch_clustering_demo
+    import torch_render_turntable
+    import torch_room_detection
+
+    t_phase = time.perf_counter()
+    zero = {k.name: 0 for k in _build.KERNELS}
+    out = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t) * 1e3
+
+    # -- (a) the mesh: the fused gray orbit's, deduplicated on the card; its ops on the card and the CPU --
+    _build.reset_launch_counts()
+    verts, faces, cols = dedup_triangle_soup(*fused.to_volume().extract_mesh_tensors())
+    launches = counted({**zero, "marching_cubes": 1}, "phase 14 mesh")
+    mesh = TriangleMesh(verts, faces, cols)
+    host = mesh.to("cpu")
+    ops = (
+        ("compute_vertex_normals", lambda m: TriangleMesh(m.vertices, m.faces, m.colors).compute_vertex_normals()),
+        (f"clustering_simplify {SCENE_CELL_M} m", lambda m: m.clustering_simplify(SCENE_CELL_M)),
+        (f"quadric_simplify to {QEM_TARGET_FACES}", lambda m: m.quadric_simplify(QEM_TARGET_FACES)),
+        (f"prune min_faces {PRUNE_MIN_FACES}", lambda m: m.prune(PRUNE_MIN_FACES)),
+    )
+    mesh_ops = {}
+    for name, op in ops:
+        op(mesh)  # warm
+        card_out, card_ms = timed(lambda: op(mesh))
+        cpu_out, cpu_ms = timed(lambda: op(host))
+        errs = {}
+        for f in ("vertices", "normals", "colors"):
+            a, b = getattr(card_out, f), getattr(cpu_out, f)
+            if (a is None) != (b is None):
+                raise AssertionError(f"{name}: {f} on one device only")
+            if a is not None:
+                errs[f] = float((a.cpu() - b).abs().max()) if len(b) else 0.0
+        if not (torch.equal(card_out.faces.cpu(), cpu_out.faces) and max(errs.values()) <= MESH_VERTEX_TOL_M):
+            raise AssertionError(f"{name}: card against CPU: faces equal {torch.equal(card_out.faces.cpu(), cpu_out.faces)}, "
+                                 f"max errs {errs} (> {MESH_VERTEX_TOL_M}?)")
+        mesh_ops[name] = dict(card_ms=card_ms, cpu_ms=cpu_ms, faces=len(card_out.faces),
+                              vertices=len(card_out.vertices), max_errs=errs, out=card_out)
+        print(f"scene (a) {name} on {len(faces)} faces: {len(card_out.vertices)} vertices, {len(card_out.faces)} faces; "
+              f"card {card_ms:.2f} ms, CPU {cpu_ms:.2f} ms; faces equal, max |card - CPU| "
+              + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + f" on {card}", flush=True)
+    qem = mesh_ops[f"quadric_simplify to {QEM_TARGET_FACES}"].pop("out")
+    for m in mesh_ops.values():
+        m.pop("out", None)
+    med, p90 = scene_distance(scene, qem.vertices.cpu().numpy(), poses[0], dev)
+    if not (len(qem.faces) <= QEM_TARGET_FACES and med < fused.voxel_size):
+        raise AssertionError(f"QEM: {len(qem.faces)} faces (target {QEM_TARGET_FACES}), |scene sdf| median {med} "
+                             f"(< voxel {fused.voxel_size})")
+    print(f"scene (a) QEM vertices against the scene SDF: median {med * 1e3:.3f} mm, p90 {p90 * 1e3:.3f} mm "
+          f"(voxel {fused.voxel_size * 1e3:.2f} mm)", flush=True)
+    out["mesh"] = dict(faces=len(faces), vertices=len(verts), ops=mesh_ops, qem_sdf_median_m=med, qem_sdf_p90_m=p90)
+
+    # -- (b) the render: 8 turntable views and the orbit's first view, card against CPU; PNGs through io/png --
+    v_host = verts.cpu().numpy()
+    center = v_host.mean(0)
+    radius = 2.2 * float(np.abs(v_host - center).max())
+    tt_cam = torch_render_turntable.turntable_camera(cam.width, cam.height)
+    # the volume's frame is the first camera's: the orbit's first view is the identity pose
+    views = [(f"turntable {i}", tt_cam, T) for i, T in
+             enumerate(torch_render_turntable.turntable_poses(center, radius, TURNTABLE_VIEWS))]
+    views.append(("orbit frame 0", cam, np.eye(4)))
+    render_mesh(verts, faces, tt_cam, views[0][2], cols)  # warm
+    view_ms, worst, png_ms = [], (1.0, 0), []
+    for i, (name, c, T) in enumerate(views):
+        img, ms = timed(lambda: render_mesh(verts, faces, c, T, cols))
+        view_ms.append(ms)
+        ref = render_mesh(host.vertices, host.faces, c, T, host.colors)
+        share, n_diff = pixel_agreement(img.cpu().numpy(), ref.numpy())
+        covered = float((ref.numpy() > 0).any(-1).mean())
+        if not (share >= MIN_PIXEL_AGREEMENT and covered > 0.05):
+            raise AssertionError(f"render {name}: {share:.6f} of pixels equal to the CPU's ({n_diff} differ; "
+                                 f"at least {MIN_PIXEL_AGREEMENT}), {covered:.3f} covered")
+        worst = min(worst, (share, n_diff))
+        u8 = to_uint8(img)
+        path = os.path.join(root, f"scene_view_{i}.png")
+        t = time.perf_counter()
+        write_png(path, u8)
+        png_ms.append((time.perf_counter() - t) * 1e3)
+        if not np.array_equal(read_png(path), u8):
+            raise AssertionError(f"render {name}: the PNG does not read back equal")
+    print(f"scene (b) render_mesh {cam.width}x{cam.height}, {len(faces)} faces, {len(views)} views "
+          f"({TURNTABLE_VIEWS} turntable + the orbit's first): card median {np.median(view_ms):.2f} ms a view "
+          f"(views {[round(x, 2) for x in view_ms]}); pixels equal to the CPU render: worst view {worst[0]:.6f} "
+          f"({worst[1]} differ); each PNG round-trips through io/png (encode median {np.median(png_ms):.1f} ms) "
+          f"on {card}", flush=True)
+    out["render"] = dict(views=len(views), ms_per_view=float(np.median(view_ms)), view_ms=view_ms,
+                         worst_equal_share=worst[0], worst_differing_pixels=worst[1], png_ms=float(np.median(png_ms)))
+
+    # -- (c) planes: 30,000 sampled vertices in the scene's frame, kNN on the card, region growing --
+    rng = np.random.default_rng(0)
+    pick = rng.choice(len(v_host), min(PLANE_SAMPLES, len(v_host)), replace=False)
+    T0 = poses[0]
+    pts_world = (v_host[pick].astype(np.float64) @ T0[:3, :3].T + T0[:3, 3]).astype(np.float32)
+    p = torch.from_numpy(pts_world).to(dev)
+    (idx, _), knn_ms = timed(lambda: knn(p, p, torch.ones(len(p), dtype=torch.bool, device=dev), k=PLANE_KNN))
+    patches, grow_ms = timed(lambda: detect_patches(p, idx, residual_threshold=0.02, min_points=PLANE_MIN_POINTS))
+    found = planes_found(pts_world, patches, scene.plane.cpu().numpy().astype(np.float64))
+    asked = [f for f in found if f["asked"]]
+    if not (asked and all(f["ok"] for f in found)):
+        raise AssertionError(f"planes: {found}")
+    print(f"scene (c) detect_patches over {len(p)} sampled vertices, kNN k={PLANE_KNN} on the card "
+          f"{knn_ms:.1f} ms, local fits on the card and region growing {grow_ms:.1f} ms: {len(patches)} patches "
+          f"({[len(x.indices) for x in patches]}); scene planes: "
+          + "; ".join(f"{f['plane']} support {f['support']}"
+                      + (f", patch {f['patch']} at {f['angle_deg']:.3f} deg, offset {f['offset_m'] * 1e3:.2f} mm"
+                         if f["asked"] else " (not asked)") for f in found) + f" on {card}", flush=True)
+    out["planes"] = dict(samples=len(p), knn_ms=knn_ms, grow_ms=grow_ms, patches=len(patches), found=found)
+
+    # -- (d) rooms: the divider case and the tool's two-room plan, card against CPU --
+    lines = np.array([[0.0, 0.0, 0.0, 1.0]])
+    arr = dcel.build_arrangement(lines, box_lo=(-2, -1), box_hi=(2, 1))
+    wall = np.c_[np.zeros(100), np.linspace(-1, 1, 100)]
+    labels = rooms.detect_rooms(arr, wall, num_rooms=2, device=dev)
+    if not divider_split(labels, dcel.face_centroids(arr)):
+        raise AssertionError(f"rooms: the divider case's labels {labels}")
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        plan_card = torch_room_detection.main(["--device", str(dev)])
+        plan_cpu = torch_room_detection.main(["--device", "cpu"])
+    lc, lh = plan_card["labels"], plan_cpu["labels"]
+    if not (lc is not None and np.array_equal(lc, lh) and len(np.unique(lc)) == 2):
+        raise AssertionError(f"rooms: the two-room plan's labels on the card {lc}, on the CPU {lh}")
+    cents = dcel.face_centroids(plan_card["arrangement"])
+    split = divider_split(lc, cents)
+    print(f"scene (d) rooms: the divider case split at x = 0 on the card; the tool's two-room plan: "
+          f"{plan_card['lines']} wall lines, {len(cents)} faces, 2 rooms, labels equal to the CPU's; split at the "
+          f"divider: {split} (rooms' face centroids x: "
+          + "; ".join(f"room {r}: {np.round(np.sort(cents[lc == r][:, 0]), 2).tolist()}" for r in np.unique(lc))
+          + ")", flush=True)
+    out["rooms"] = dict(divider_case=True, plan_faces=len(cents), plan_split_at_divider=split)
+
+    # -- (e) clusters: clustering_demo's blobs, card against CPU from the same start --
+    blobs = torch.from_numpy(torch_clustering_demo.synthetic_blobs(4, 0))
+    init = clustering._initial_indices(torch.Generator().manual_seed(0), torch.ones(len(blobs), dtype=torch.bool),
+                                       4, None)
+    sizes = {}
+    for method in ("kmeans", "kmedoids", "meanshift"):
+        lab = [torch_clustering_demo.cluster(method, blobs.to(d), 4, 0.3, None, init) for d in (dev, "cpu")]
+        if not np.array_equal(*lab):
+            raise AssertionError(f"{method}: the card's labels differ from the CPU's")
+        sizes[method] = np.bincount(lab[0][lab[0] >= 0]).tolist()
+    print(f"scene (e) kmeans, kmedoids, mean shift on {len(blobs)} blob points: the card's labels equal the CPU's "
+          f"(cluster sizes {sizes})", flush=True)
+    out["clusters"] = sizes
+
+    # -- (f) the slice's CLIs, started together, one card --
+    orbit, fused_ply = str(Path(root) / "orbit"), str(Path(root) / "fused.ply")
+    done, cli_s = run_clis([(name, [a.replace("ORBIT", orbit).replace("MESH", fused_ply) for a in extra])
+                            for name, extra in SCENE_CLIS], root, SCENE_CLI_TIMEOUT_S)
+    failed = [f"{name}: exit {rc}\n{o[-2000:]}\n{e[-4000:]}" for name, (rc, o, e) in done.items() if rc != 0]
+    if failed:
+        raise AssertionError("scene CLIs failed:\n" + "\n".join(failed))
+    r = Path(root)
+    outputs = {"tt_mesh": len(list((r / "tt_mesh").glob("turntable_*.png"))),
+               "tt_fused": len(list((r / "tt_fused").glob("turntable_*.png")))}
+    if not (outputs["tt_mesh"] == 4 and outputs["tt_fused"] == 24 and (r / "tt_mesh" / "turntable.gif").exists()
+            and (r / "tt_fused" / "turntable.gif").exists() and (r / "qem.ply").exists()
+            and "PASS" in done["torch_room_detection"][1]):
+        raise AssertionError(f"scene CLIs: outputs {outputs}")
+    print(f"scene (f) {len(done)} CLIs started together, all exit 0 in {cli_s:.1f} s: "
+          + "; ".join(f"{name}: {o.strip().splitlines()[-1]}" for name, (_, o, _) in done.items()), flush=True)
+    out["clis"] = dict(seconds=cli_s, exit_codes={name: rc for name, (rc, _, _) in done.items()})
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 14 took {out['seconds']:.1f} s; the script so far {time.perf_counter() - t_script:.1f} s",
+          flush=True)
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     # ---- 1. the card ------------------------------------------------------
     t_script = time.perf_counter()
@@ -2377,13 +2657,16 @@ def main() -> int:
         disk_phase(cam, dev, card, poses, grays, depths, root)
         phase12 = real_input_phase(cam, dev, card, slice_slams, root)
         phase13 = host_loop_phase(cam, dev, card, poses, grays, depths, phase9, root, t_script)
+        # ---- 14. scene analysis and visualisation on the fused orbit's mesh, the slice's CLIs ----
+        phase14 = scene_phase(cam, dev, card, scene, poses, slice_slams["gray"], root, t_script)
     results["ba_schur"].update({f"ba_test_2d_{k}": v for k, v in phase12["ba_test_2d"].items()})
     results["hamming"]["host_loop_mild_rel_err"] = phase13["fba_orbit"]["mild_rel_err"]
     results["ba_schur"]["host_loop_rel_errs"] = phase13["ba_loop"]["schur_rel_errs"]
+    path_launches.append(phase14["launches"])
 
     # the hamming launches are phases 9's and 13's counted runs, the ba_schur
     # launches phases 10's and 13's; the other four keep the counts of phases
-    # 5, 7 and 8 (phase 11 prints its own). No single PyTorch call computes
+    # 5, 7, 8 and 14 (phase 11 prints its own). No single PyTorch call computes
     # any of the six functions.
     counted_in = {_build.HAMMING.name: phase9["launches"] + phase13["launches"],
                   _build.BA_SCHUR.name: phase10["launches"] + phase13["launches"]}

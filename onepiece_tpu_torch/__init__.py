@@ -11,10 +11,16 @@ Layout (the slices so far: the dense fusion loop `systems/fused_slam.py`,
 DenseSlam `systems/dense_slam.py`, meshing with the pipelined loop
 `systems/pipeline.py`, sparse FBAFusion `systems/fused_sparse.py`, bundle
 adjustment `systems/fused_ba.py`, real input and state `io/tum.py`,
-`io/png.py`, `utils/checkpoint.py`, and the prefetch ring
-`io/native_loader.py` with the remaining I/O and tool modules):
+`io/png.py`, `utils/checkpoint.py`, the prefetch ring
+`io/native_loader.py` with the remaining I/O and tool modules, the
+host-loop systems, and scene analysis and visualisation):
   geometry/      SE(3) math, pinhole camera (+ presets), Kabsch and normal
-                 fitting, fixed-capacity point clouds
+                 fitting, fixed-capacity point clouds, triangle meshes
+                 (normals, clustering / QEM simplification, pruning)
+  algorithm/     clustering, plane / line region growing, line arrangements,
+                 room segmentation
+  native/        mesh_native.cpp (QEM, pruning; host C++ built by `_native.py`)
+  viz/           software mesh renderer, mesh / gray / depth / trajectory PNGs
   ops/           image ops, dense Gauss-Newton steps (kernel), TSDF keys and
                  pool integration (kernel), brute-force kNN, exact 1-NN
                  (kernel), batched RANSAC, marching cubes (kernel) and its

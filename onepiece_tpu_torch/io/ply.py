@@ -1,8 +1,10 @@
 """PLY mesh / point-cloud IO (binary little-endian + ascii).
 
-The port's own copy of `onepiece_tpu/io/ply.py` (numpy only); the one change
-is that `dedup_triangle_soup` takes each vertex's first occurrence from
-`np.unique(..., return_index=True)` instead of a Python loop (same result).
+The port's own copy of `onepiece_tpu/io/ply.py` (numpy only); the changes
+are that `dedup_triangle_soup` takes each vertex's first occurrence from
+`np.unique(..., return_index=True)` instead of a Python loop, and that
+`read_ply` reads a binary face list of triangles only as one array of fixed
+records instead of face by face (same results).
 
 Replacement for the reference's tinyply/rply wrappers
 (ref: src/Tool/{PLYManager,RPLYManager}.{h,cpp}) in pure numpy — struct
@@ -154,7 +156,16 @@ def read_ply(path: str) -> dict:
                 col = arr[names[0]] if len(names) == 1 else arr
                 out.setdefault("labels", {})[el["name"]] = np.asarray(col)
         else:
-            # face element with a single list property (the common case)
+            # face element with a single list property (the common case):
+            # all triangles read as fixed records at once, else face by face
+            count_t, index_t = (np.dtype(type_map[t]) for t in el["props"][0][1:3])
+            tri = np.dtype([("n", count_t), ("idx", index_t, (3,))])
+            if len(body) - offset >= tri.itemsize * el["count"]:
+                fixed = np.frombuffer(body, tri, count=el["count"], offset=offset)
+                if (fixed["n"] == 3).all():
+                    out["faces"] = fixed["idx"].astype(np.int64)
+                    offset += tri.itemsize * el["count"]
+                    continue
             faces = []
             for _ in range(el["count"]):
                 (n,) = np.frombuffer(body, type_map[el["props"][0][1]], 1, offset)

@@ -103,3 +103,45 @@ def test_ate_gap_tool_runs_the_port_without_jax():
         assert set(cell) == {"port"} and all(len(v) == 2 for v in cell["port"].values())
         assert np.isfinite(cell["port"]["ate_m"]).all()
     assert out["frozen"]["orbit"]["rpe_span_deg"] > 0
+
+
+def test_scene_phase_checks():
+    """Phase 14's pure checks: pixel agreement counts differing pixels;
+    `planes_found` finds a plane through a patch within 5 deg and 2 cm (either
+    sign of its model), misses one tilted or shifted past those, and does not
+    ask for a plane with too little support; `divider_split` holds only
+    labels that split the faces at x = 0."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as cs
+    from onepiece_tpu_torch.algorithm.patch_detection import Patch
+
+    a = np.zeros((4, 5, 3), np.float32)
+    b = a.copy()
+    b[1, 2, 0] = 1.0
+    assert cs.pixel_agreement(a, a) == (1.0, 0) and cs.pixel_agreement(a, b) == (19 / 20, 1)
+
+    rng = np.random.default_rng(0)
+    floor = np.c_[rng.uniform(-1, 1, 3000), np.full(3000, 0.8), rng.uniform(1, 3, 3000)]
+    planes = np.array([[0.0, -1.0, 0.0, 0.8], [0.0, 0.0, -1.0, 3.6]])
+    tilt = np.radians(6.0)
+
+    def patch(n, d):
+        return Patch(np.arange(10), np.array([*n, d]))
+
+    cases = {
+        "found": ([patch((0, -1, 0), 0.8)], True),
+        "found, other sign": ([patch((0, 2, 0), -1.6)], True),
+        "found within bounds": ([patch((0, -np.cos(np.radians(4)), np.sin(np.radians(4))), 0.815)], True),
+        "tilted": ([patch((0, -np.cos(tilt), np.sin(tilt)), 0.8)], False),
+        "shifted": ([patch((0, -1, 0), 0.83)], False),
+        "no patch": ([], False),
+    }
+    for name, (patches, ok) in cases.items():
+        found = cs.planes_found(floor, patches, planes)
+        assert found[0]["asked"] and found[0]["ok"] == ok, (name, found[0])
+        assert not found[1]["asked"] and found[1]["ok"] and found[1]["support"] == 0, name
+
+    cents = np.array([[-1.0, 0.0], [-0.5, 0.3], [1.0, 0.0]])
+    assert cs.divider_split(np.array([0, 0, 1]), cents)
+    assert not cs.divider_split(np.array([0, 1, 1]), cents)
+    assert not cs.divider_split(np.array([0, 0, 0]), cents)

@@ -1126,3 +1126,90 @@ def test_baslam_on_the_card_repeats_bit_for_bit(dev, frames, mode):
     assert np.array_equal(est, b.trajectory())
     assert np.array_equal(np.stack(a.world_points), np.stack(b.world_points))
     assert a.observations == b.observations
+
+
+def _uv_sphere(n_lat: int, n_lon: int, radius: float, centre) -> tuple[np.ndarray, np.ndarray]:
+    """A latitude-longitude sphere (V, 3) float32, (F, 3) int64."""
+    th = np.linspace(0.05, np.pi - 0.05, n_lat)
+    ph = np.linspace(0.0, 2 * np.pi, n_lon, endpoint=False)
+    t, p = np.meshgrid(th, ph, indexing="ij")
+    v = np.stack([np.sin(t) * np.cos(p), np.cos(t), np.sin(t) * np.sin(p)], -1).reshape(-1, 3) * radius + centre
+    i, j = np.meshgrid(np.arange(n_lat - 1), np.arange(n_lon), indexing="ij")
+    a, b = i * n_lon + j, i * n_lon + (j + 1) % n_lon
+    c, d = a + n_lon, b + n_lon
+    f = np.concatenate([np.stack([a, b, c], -1).reshape(-1, 3), np.stack([b, d, c], -1).reshape(-1, 3)])
+    return v.astype(np.float32), f.astype(np.int64)
+
+
+def _scene_mesh():
+    """Two spheres, the smaller occluding the larger, and a quad drawn twice
+    at one depth with other colours: 30,004 faces, seeded colours."""
+    v1, f1 = _uv_sphere(101, 100, 0.5, (0.0, 0.0, 0.0))
+    v2, f2 = _uv_sphere(51, 100, 0.3, (0.3, 0.1, -0.4))
+    quad = np.array([[-0.6, -0.6, -0.8], [0.2, -0.6, -0.8], [0.2, 0.2, -0.8], [-0.6, 0.2, -0.8]], np.float32)
+    qf = np.array([[0, 1, 2], [0, 2, 3]])
+    n = len(v1) + len(v2)
+    v = np.concatenate([v1, v2, quad, quad])
+    f = np.concatenate([f1, f2 + len(v1), qf + n, qf + n + 4])
+    return v, f, np.random.default_rng(0).uniform(0, 1, v.shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("coloured", [False, True])
+def test_render_mesh_on_the_card_against_the_cpu(dev, coloured):
+    """`viz/render.render_mesh` at 640x480 on the card against the CPU, in
+    whole and in small chunks: at least 99.9 % of pixels equal (the same
+    float64 expressions; here every pixel)."""
+    from onepiece_tpu_torch.geometry.camera import PinholeCamera
+    from onepiece_tpu_torch.viz import render
+
+    v, f, c = _scene_mesh()
+    cam = PinholeCamera(fx=576.0, fy=576.0, cx=319.5, cy=239.5, width=640, height=480, depth_scale=1000.0)
+    c = c if coloured else None
+    for tz in (-2.0, -1.1):
+        T = np.eye(4)
+        T[:3, 3] = [0.05, 0.02, tz]
+        ref = render.render_mesh(torch.from_numpy(v), torch.from_numpy(f), cam, T,
+                                 None if c is None else torch.from_numpy(c)).numpy()
+        args = (torch.from_numpy(v).to(dev), torch.from_numpy(f).to(dev), cam, T,
+                None if c is None else torch.from_numpy(c).to(dev))
+        img = render.render_mesh(*args)
+        assert img.device.type == "cuda" and (ref.sum(-1) > 0).mean() > 0.2
+        assert (img.cpu().numpy() == ref).all(-1).mean() >= 0.999
+        budget = render.FRAGMENT_BUDGET
+        try:
+            render.FRAGMENT_BUDGET = 10_000
+            assert torch.equal(render.render_mesh(*args), img)
+        finally:
+            render.FRAGMENT_BUDGET = budget
+
+
+def test_triangle_mesh_on_the_card_repeats_bit_for_bit(dev):
+    """`TriangleMesh`'s device ops (vertex normals, clustering simplification,
+    pruning's compaction) twice on the card: bit-equal run to run (segment
+    sums in a fixed order, no float atomics), and against the CPU faces
+    equal and vertices, normals and colours within 1e-6."""
+    from onepiece_tpu_torch.geometry.mesh import TriangleMesh
+
+    v, f, c = _scene_mesh()
+    rng = np.random.default_rng(1)
+    v = v + rng.normal(0, 0.002, v.shape).astype(np.float32)
+    host = TriangleMesh.from_numpy(v, f, c, device="cpu")
+    ops = {
+        "normals": lambda m: TriangleMesh(m.vertices, m.faces, m.colors).compute_vertex_normals(),
+        "cluster 0.02": lambda m: m.clustering_simplify(0.02),
+        "cluster 0.005": lambda m: m.clustering_simplify(0.005),
+        "prune": lambda m: m.prune(100),
+    }
+    for name, op in ops.items():
+        a, b = (op(TriangleMesh.from_numpy(v, f, c, device=dev)) for _ in range(2))
+        ref = op(host)
+        for field in ("vertices", "faces", "colors", "normals"):
+            x, y, r = getattr(a, field), getattr(b, field), getattr(ref, field)
+            if r is None:
+                assert x is None and y is None, (name, field)
+                continue
+            assert x.device.type == "cuda" and torch.equal(x, y), (name, field)
+            if field == "faces":
+                assert torch.equal(x.cpu(), r), name
+            else:
+                assert float((x.cpu() - r).abs().max()) <= 1e-6, (name, field)

@@ -127,14 +127,27 @@ def print_ate(poses: np.ndarray, gt) -> None:
     print(f"ATE RMSE (first {m} frames): {traj.ate_rmse(poses[:m], np.asarray(gt)[:m]):.5f} m")
 
 
-def write_mesh(vol, path: str) -> tuple[int, int, float]:
+def add_turntable_arg(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--turntable", type=str, default="",
+                    help="directory for a rotating-view PNG sequence + GIF of the final mesh")
+
+
+def write_mesh(vol, path: str, turntable: str = "") -> tuple[int, int, float]:
     """Mesh the volume (the marching-cubes kernel), merge its vertices on
     the volume's device, copy the mesh to the host once and write the PLY:
-    (vertices, faces, seconds)."""
+    (vertices, faces, seconds). With `turntable`, then render the mesh's
+    turntable views on the volume's device into that directory, with a GIF
+    (`tools/torch_render_turntable.py`; not counted in the seconds)."""
     t = time.perf_counter()
-    verts, faces, cols = (x.cpu().numpy() for x in dedup_triangle_soup(*vol.extract_mesh_tensors()))
+    mesh = dedup_triangle_soup(*vol.extract_mesh_tensors())
+    verts, faces, cols = (x.cpu().numpy() for x in mesh)
     write_ply_mesh(path, verts, faces, colors=cols)
-    return len(verts), len(faces), time.perf_counter() - t
+    secs = time.perf_counter() - t
+    if turntable:
+        from torch_render_turntable import render_turntable
+
+        render_turntable(*mesh[:2], turntable, colors=mesh[2], gif=os.path.join(turntable, "turntable.gif"))
+    return len(verts), len(faces), secs
 
 
 def keeping(frames, first: int, stride: int, kept: list):

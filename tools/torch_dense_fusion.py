@@ -4,6 +4,7 @@
     python3 tools/torch_dense_fusion.py --dataset DIR                       # a TUM folder, on the card
     python3 tools/torch_dense_fusion.py --synthetic 150                     # 640x480, on the card
     python3 tools/torch_dense_fusion.py --synthetic 4 --scale 8 --device cpu
+    python3 tools/torch_dense_fusion.py --synthetic 150 --turntable tt    # + 24 views of the mesh, tt/turntable.gif
 
 The counterpart of `tools/dense_fusion.py` for `onepiece_tpu_torch`: reads
 a TUM folder or renders N frames of the synthetic orbit, runs `DenseSlam`
@@ -23,7 +24,7 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from _torch_common import add_dataset_args, fuse, keeping, load_frames, print_ate, write_mesh
+from _torch_common import add_dataset_args, add_turntable_arg, fuse, keeping, load_frames, print_ate, write_mesh
 
 from onepiece_tpu_torch.io import trajectory as traj
 from onepiece_tpu_torch.systems.dense_slam import DenseSlam
@@ -37,6 +38,7 @@ def main() -> None:
     ap.add_argument("--voxel", type=float, default=0.02)
     ap.add_argument("--integrate-stride", type=int, default=8, help="integrate every k-th frame")
     ap.add_argument("--submap-size", type=int, default=50)
+    add_turntable_arg(ap)
     args = ap.parse_args()
 
     frames, cam, gt = load_frames(args)
@@ -58,7 +60,7 @@ def main() -> None:
     t1 = time.perf_counter()
     vol = fuse(poses, kept, cam, args.voxel, args.device)
     print(f"integrated {len(kept)} frames in {time.perf_counter() - t1:.2f}s; blocks {vol.num_active}")
-    nv, nf, secs = write_mesh(vol, args.out_mesh)
+    nv, nf, secs = write_mesh(vol, args.out_mesh, args.turntable)
     print(f"mesh: {nv} verts {nf} faces in {secs:.2f}s -> {args.out_mesh}")
 
 

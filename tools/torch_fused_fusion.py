@@ -6,6 +6,7 @@
     python3 tools/torch_fused_fusion.py --synthetic 4 --scale 8 --device cpu
     python3 tools/torch_fused_fusion.py --dataset DIR --max-frames 8 --checkpoint c.npz
     python3 tools/torch_fused_fusion.py --dataset DIR --resume c.npz      # frames 8.. continue the run
+    python3 tools/torch_fused_fusion.py --synthetic 16 --turntable tt     # + 24 views of the mesh, tt/turntable.gif
 
 The counterpart of `tools/fused_fusion.py` for `onepiece_tpu_torch`: reads
 a TUM folder (`io/tum.py`, decoded as the loop consumes it) or renders N
@@ -30,7 +31,7 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from _torch_common import add_dataset_args, chunks, load_frames, print_ate, write_mesh
+from _torch_common import add_dataset_args, add_turntable_arg, chunks, load_frames, print_ate, write_mesh
 
 from onepiece_tpu_torch.io import trajectory as traj
 from onepiece_tpu_torch.systems.fused_slam import FusedDenseFusion
@@ -47,6 +48,7 @@ def main() -> None:
     ap.add_argument("--chunk", type=int, default=1, help="frames per process_chunk call")
     ap.add_argument("--checkpoint", type=str, default=None, help="write a full-SLAM-state checkpoint here at the end")
     ap.add_argument("--resume", type=str, default=None, help="resume from a checkpoint written by --checkpoint")
+    add_turntable_arg(ap)
     args = ap.parse_args()
 
     frames, cam, gt = load_frames(args)
@@ -71,7 +73,7 @@ def main() -> None:
         ckpt.save(slam, args.checkpoint)
         print(f"checkpoint -> {args.checkpoint}")
     print_ate(poses, gt)
-    nv, nf, secs = write_mesh(slam.to_volume(), args.out_mesh)
+    nv, nf, secs = write_mesh(slam.to_volume(), args.out_mesh, args.turntable)
     print(f"mesh: {nv} verts {nf} faces in {secs:.2f}s -> {args.out_mesh}")
 
 
