@@ -182,9 +182,38 @@ Phases, in order; any failure exits non-zero before the final `ok` line:
      on phase 11's folder, `torch_clustering_demo`, `torch_room_detection`
      and `torch_fused_fusion --synthetic 16 --turntable`, started
      together: each exits 0, the turntables write their PNGs and GIFs
+ 15. `parallel/` across ranks (`parallel/launch.spawn`, `parallel/drive`):
+     every module at world 1 over NCCL, then, in one set of 4 gloo ranks
+     (subgroups of the first 2 and all 4; the ranks share the card and
+     each collective is staged through host memory), at worlds 2 and 4,
+     each rank's kernels on CUDA tensors, and world 1 held to paths
+     outside `parallel/` (`world1_against_unsharded`: the unsharded
+     tracker within GN_STEP_TOL, the unsharded extraction of phase 5's
+     pool bit-equal in order, the plain BA step within 1e-4 relative or,
+     against float64, within 2x the float32 plain step):
+     pixel-sharded tracking
+     of the orbit pair (T within GN_STEP_TOL of world 1, inliers equal, 28
+     GN launches a rank), 4,096 blocks integrated block-sharded (bit-equal),
+     the 16 orbit frames fused slot-sharded at phase 5's poses, filtered
+     depths and pool settings (the gathered pool and the table bit-equal to
+     world 1's, and world 1's to phase 5's FusedDenseFusion; 16 TSDF
+     launches a rank), ring-halo marching cubes on that pool (triangles
+     bit-equal and in order to world 1's) and the all_to_all migration (the
+     mesh equal as a sorted set, num_active kept, overflow 0), one
+     point-sharded BA step on phase 10's orbit BA call (within 1e-4 relative
+     of world 1, 2 ba_schur launches a rank), the edge-sharded pose graph of
+     a 64-pose ring (within 1e-5 of world 1, ranks bit-identical); then the
+     submap pipeline on phase 6's 150-frame loop, three submaps of 50
+     frames over the first 3 of those gloo ranks, against its serial run on
+     the card (stages
+     within 1e-4, frame positions within 1 mm; whether they are bit-equal,
+     the largest differences, the launches and the ATE printed). Prints each
+     world's seconds and rank 0's collectives (calls, bytes, bytes staged
+     through the host, ms)
 Prints one JSON line of per-kernel results (launches: the counted runs of
 phases 5 (gray and rgb), 7, 8 and 14 together, for hamming phases 9's and
-13's, for ba_schur phases 10's and 13's; ms: the kernels' device time per
+13's, for ba_schur phases 10's and 13's; phase15_launches: phase 15's
+launches over every rank of every world and its serial submap run); ms: the kernels' device time per
 wrapper call from the profiler (from CUDA events around each single call
 where the profiler records none; a note on stderr says so); event_ms and plain_ms: CUDA events around
 back-to-back calls of the wrapper and of the plain version; the TSDF entry
@@ -1108,6 +1137,7 @@ def ba_phase(cam, dev, card, poses, grays, depths, sparse: dict) -> dict:
               f"({b['bound_by']}: {n_ops} operations, {n_bytes} B), roofline share {b['bound_ms'] / ms:.4f}; over "
               f"the live frames and points only: bound {live['bound_ms']:.5f} ms ({live['bound_by']}), share "
               f"{live['bound_ms'] / ms:.4f}", flush=True)
+    orbit_ba = tuple(a.cpu() if torch.is_tensor(a) else a for a in orbit_call)  # phase 15's BA problem
     del orbit_call, loop_call, wide_call
 
     # -- (c) FusedBASlam on the orbit, one chunk: launches, syncs, ATE, repeatability --
@@ -1217,7 +1247,7 @@ def ba_phase(cam, dev, card, poses, grays, depths, sparse: dict) -> dict:
                   lm_loop_ms_per_chunk=dict(orbit=orbit_stage["LM loop"], loop=loop_stage["LM loop"]))
     kernel.update(max_abs_err=max(r["max_abs_err"] for r in res.values()),
                   max_rel_err=max(r["max_rel_err"] for r in res.values()))
-    return dict(kernel=kernel, launches=launches)
+    return dict(kernel=kernel, launches=launches, orbit_ba=orbit_ba)
 
 
 ATE_LINE = re.compile(r"ATE RMSE \(first (\d+) frames\): (\S+) m")
@@ -2323,6 +2353,304 @@ def scene_phase(cam, dev, card, scene, poses, fused, root: str, t_script: float)
     return out
 
 
+PARALLEL_GLOO_WORLDS = (2, 4)  # one card: NCCL at world 1 only; gloo ranks sharing it at 2, 3 (submaps) and 4
+SUBMAP_WORLD = 3  # the 150-frame loop in three submaps of 50 frames, one a rank
+PARALLEL_TSDF_BLOCKS = 4096
+PARALLEL_POSES = 64  # the pose-graph ring
+PARALLEL_BA_TOL = 1e-4  # relative, phase 10's rule
+PARALLEL_PG_TOL = 1e-5
+SUBMAP_STAGE_TOL = 1e-4
+SUBMAP_POSE_TOL_M = 1e-3
+SUBMAP_CLOUD_CAPACITY = 16384  # DenseSlam compacts the loop's submap clouds (at most 13,321 points) to 16,384
+PARALLEL_TIMEOUT_S = 300
+
+
+def comm_line(stats: dict) -> str:
+    """One rank's collectives: calls, bytes it put in, bytes staged through the host, ms."""
+    return ", ".join(f"{name} {c['calls']}x {c['bytes']} B ({c['staged_bytes']} B staged) {c['ms']:.3f} ms"
+                     for name, c in stats.items() if c["calls"]) or "none"
+
+
+def parallel_inputs(cam, grays, depths, est, fused, orbit_ba) -> dict:
+    """Phase 15's inputs, as host arrays: the orbit pair, 4,096 blocks in front
+    of frame 0, phase 5's 16 filtered frames at its poses and pool settings,
+    phase 10's orbit BA call in the per-point layout, the pose-graph ring."""
+    from onepiece_tpu_torch.ops.image import bilateral_filter
+    from onepiece_tpu_torch.optimization import bundle
+    from onepiece_tpu_torch.parallel import ba as pba
+    from onepiece_tpu_torch.parallel import drive
+    from onepiece_tpu_torch.systems import fused_slam
+
+    def host(t):
+        return t.cpu().numpy()
+
+    poses, points, frame, point, uv, valid, lam, intr = orbit_ba[:8]
+    v = host(valid)
+    obs = bundle.build_observations(host(frame)[v], host(point)[v], host(uv)[v], points.shape[0])
+    frame_pp, uv_pp, mask_pp = pba.per_point_layout(obs, points.shape[0])
+    return dict(
+        camera=cam,
+        dense=dict(src_gray=host(grays[0]), src_depth=host(depths[0]), tgt_gray=host(grays[1]),
+                   tgt_depth=host(depths[1])),
+        tsdf=drive.tsdf_inputs(cam, host(depths[0]), PARALLEL_TSDF_BLOCKS),
+        fused=dict(depths=host(torch.stack([bilateral_filter(d) for d in depths])), grays=host(grays),
+                   poses=est.astype(np.float32), capacity=fused.capacity, table_size=fused.table_size,
+                   voxel_size=fused.voxel_size, truncation=fused.truncation, kmax=fused.kmax, stride=fused.stride,
+                   claim_rounds=(fused_slam.INIT_CLAIM_ROUNDS, fused_slam.FRAME_CLAIM_ROUNDS)),
+        ba=dict(poses=host(poses), points=host(points), frame_pp=frame_pp, uv_pp=uv_pp, mask_pp=mask_pp,
+                lam=float(lam), intr=tuple(float(x) for x in intr)),
+        posegraph=drive.ring_posegraph(PARALLEL_POSES),
+    )
+
+
+def check_world(world: int, ranks: list, ref: dict, n_frames: int, n_iters: int) -> list:
+    """Phase 15's bars for one world's ranks against world 1's rank 0 (`ref`);
+    returns the lines to print."""
+    r0 = ranks[0]
+    for r, got in enumerate(ranks):
+        if float(got["psum"]["value"][0]) != world * (world + 1) / 2:
+            raise AssertionError(f"world {world} rank {r}: psum {got['psum']['value']}")
+        for name, key in (("dense", "T"), ("ba", "poses"), ("posegraph", "poses")):
+            if not np.array_equal(got[name][key], r0[name][key]):
+                raise AssertionError(f"world {world}: rank {r}'s {name} {key} differs from rank 0's")
+        want = {"dense": {"dense_normal_eq": n_iters}, "fused": {"tsdf_integrate": n_frames},
+                "ba": {"ba_schur": 2},
+                "mc": {"marching_cubes": (got["mc"]["blocks_here"] > 0) + (got["mc"]["blocks_here_after"] > 0)}}
+        for name, counts in want.items():
+            for k, n in counts.items():
+                if got[name]["launches"][k] != n:
+                    raise AssertionError(f"world {world} rank {r} {name}: {k} launches "
+                                         f"{got[name]['launches'][k]}, expected {n}")
+        if got["fused"]["table_digest"] != r0["fused"]["table_digest"]:
+            raise AssertionError(f"world {world}: rank {r}'s hash table differs from rank 0's")
+    dT = float(np.abs(r0["dense"]["T"] - ref["dense"]["T"]).max())
+    if not (dT <= GN_STEP_TOL and r0["dense"]["inliers"] == ref["dense"]["inliers"]):
+        raise AssertionError(f"world {world} dense: max |dT| {dT} (<= {GN_STEP_TOL}), inliers "
+                             f"{r0['dense']['inliers']} vs {ref['dense']['inliers']}")
+    if r0["tsdf"]["digest"] != ref["tsdf"]["digest"]:
+        raise AssertionError(f"world {world} tsdf: blocks differ from world 1's")
+    f, f1 = r0["fused"], ref["fused"]
+    if (f["pool_digest"], f["table_digest"]) != (f1["pool_digest"], f1["table_digest"]):
+        raise AssertionError(f"world {world} fused: the gathered pool or the table differs from world 1's")
+    m, m1 = r0["mc"], ref["mc"]
+    if not (m["digest"] == m1["digest"] and m["sorted_digest_after"] == m1["sorted_digest"]
+            and m["num_active_after"] == f1["num_active"] and m["overflow_after"] == 0):
+        raise AssertionError(f"world {world} mc: triangles {m['triangles']} / after migration "
+                             f"{m['triangles_after']} against {m1['triangles']}, equal in order "
+                             f"{m['digest'] == m1['digest']}, as a set after migration "
+                             f"{m['sorted_digest_after'] == m1['sorted_digest']}, num_active "
+                             f"{m['num_active_after']}, overflow {m['overflow_after']}")
+    ba_err = max(float(np.abs(r0["ba"][k] - ref["ba"][k]).max() / np.abs(ref["ba"][k]).max())
+                 for k in ("poses", "points"))
+    if not ba_err <= PARALLEL_BA_TOL:
+        raise AssertionError(f"world {world} ba: rel err {ba_err} > {PARALLEL_BA_TOL}")
+    pg_err = float(np.abs(r0["posegraph"]["poses"] - ref["posegraph"]["poses"]).max())
+    if not pg_err <= PARALLEL_PG_TOL:
+        raise AssertionError(f"world {world} posegraph: max err {pg_err} > {PARALLEL_PG_TOL}")
+    return [
+        f"dense: max |T - T(world 1)| {dT:.3g}, inliers {int(r0['dense']['inliers'])} equal",
+        f"tsdf: {r0['tsdf']['updated']} voxels updated, bit-equal to world 1",
+        f"fused: pool and table bit-equal to world 1, num_active {f['num_active']}, overflow {f['overflow']}, "
+        f"key_saturated_frames {f['key_saturated_frames']}, kmax {f['kmax']}, {n_frames} TSDF launches a rank",
+        f"mc: {m['triangles']} triangles bit-equal in order to world 1; after migration {m['triangles_after']}, "
+        f"equal as a sorted set, num_active {m['num_active_after']}, overflow 0, blocks a rank "
+        f"{[g['mc']['blocks_here'] for g in ranks]} -> {[g['mc']['blocks_here_after'] for g in ranks]}",
+        f"ba: rel err {ba_err:.3g} against world 1, 2 ba_schur launches a rank",
+        f"posegraph: max err {pg_err:.3g} against world 1, ranks bit-identical",
+    ]
+
+
+def world1_against_unsharded(cam, dev, grays, depths, fused, orbit_ba, ref: dict) -> list:
+    """Phase 15's world 1 against paths that share no code with `parallel/`:
+    the unsharded tracker on the card (the GN kernel with the update on),
+    the marching-cubes kernel on phase 5's whole pool (`to_volume`, as phase
+    8 meshes it), and the plain BA step on the CPU with U damped inside the
+    unsharded reduction (`reduced_system_reference`, the damping the
+    kernel's `undamped_u` and `parallel/ba`'s damping after the psum stand
+    in for), by the 2-D model's rule: within PARALLEL_BA_TOL of the float32
+    plain step, or against the float64 step within 2x the float32 plain
+    step's error. Returns the lines to print."""
+    from onepiece_tpu_torch.geometry import se3
+    from onepiece_tpu_torch.integration.blocks import neighbor_slots_device
+    from onepiece_tpu_torch.odometry import dense
+    from onepiece_tpu_torch.ops import ba_schur
+    from onepiece_tpu_torch.ops import marching_cubes as mc
+    from onepiece_tpu_torch.parallel import drive
+
+    solo = dense.dense_tracking(dense.preprocess_frame(grays[0], depths[0], cam),
+                                dense.preprocess_frame(grays[1], depths[1], cam), cam)
+    dT = float(np.abs(ref["dense"]["T"] - solo.T_ts.cpu().numpy()).max())
+    if not dT <= GN_STEP_TOL:
+        raise AssertionError(f"phase 15 world 1 dense: max |T - T(dense_tracking)| {dT} > {GN_STEP_TOL}")
+
+    vol = fused.to_volume()
+    coords = torch.from_numpy(vol.active_coords()).to(dev, torch.int32)
+    verts, colors = mc.extract_triangles(vol.vox, torch.arange(vol.num_active, dtype=torch.int32, device=dev),
+                                         neighbor_slots_device(coords), coords, vol.voxel_size)
+    if drive.digest(torch.stack([verts, colors], 1)) != ref["mc"]["digest"]:
+        raise AssertionError(f"phase 15 world 1 mc: {ref['mc']['triangles']} triangles, the unsharded extraction "
+                             f"of phase 5's pool {verts.shape[0]}, not bit-equal in order")
+
+    poses, points, frame, point, uv, valid, lam, intr = orbit_ba[:8]
+    step = {}
+    for dt in (torch.float32, torch.float64):
+        P, X = poses.to(dt), points.to(dt)
+        system = ba_schur.reduced_system_reference(P, X, frame, point, uv.to(dt), valid,
+                                                   torch.as_tensor(float(lam), dtype=dt),
+                                                   tuple(float(x) for x in intr))
+        n6 = 6 * P.shape[0]
+        L, _ = torch.linalg.cholesky_ex(system.S[6:, 6:] + 1e-9 * torch.eye(n6 - 6, dtype=dt))
+        dc = torch.cat([torch.zeros(6, dtype=dt), torch.cholesky_solve(-system.rhs_c[6:, None], L)[:, 0]])
+        step[dt] = dict(poses=se3.se3_exp(dc.reshape(-1, 6)) @ P,
+                        points=X + ba_schur.back_substitute_reference(system, dc, frame, point))
+
+    def rel(x: dict, y: dict) -> float:
+        return max(float((x[k].double() - y[k].double()).abs().max() / y[k].double().abs().max())
+                   for k in ("poses", "points"))
+
+    world = {k: torch.from_numpy(ref["ba"][k]) for k in ("poses", "points")}
+    ba_err = rel(world, step[torch.float32])
+    vs64 = dict(world1=rel(world, step[torch.float64]), plain=rel(step[torch.float32], step[torch.float64]))
+    # the 2-D model's rule (phase 13, the card tests): within the tolerance of
+    # the float32 plain step, or, where float32 is only as accurate as its
+    # rounding, within 2x the float32 plain step's error against float64
+    if not (ba_err <= PARALLEL_BA_TOL or vs64["world1"] <= 2 * vs64["plain"]):
+        raise AssertionError(f"phase 15 world 1 ba: rel err {ba_err} against the plain unsharded step (<= "
+                             f"{PARALLEL_BA_TOL}), against float64 {vs64} (world 1 <= 2x the float32 plain step)")
+    return [f"dense: max |T - T(dense_tracking)| {dT:.3g}, inliers {int(ref['dense']['inliers'])} "
+            f"(dense_tracking {int(solo.num_inliers)})",
+            f"mc: {ref['mc']['triangles']} triangles bit-equal in order to the unsharded extraction of phase 5's pool",
+            f"ba: rel err against the plain unsharded step {ba_err:.3g}; against the float64 step: world 1 "
+            f"{vs64['world1']:.3g}, the float32 plain step {vs64['plain']:.3g}"]
+
+
+def parallel_phase(cam, dev, card, grays, depths, est, fused, s_grays, s_depths, slam_gt, orbit_ba,
+                   root: str, t_script: float) -> dict:
+    """Phase 15: `parallel/` across ranks on the card. Every module at worlds
+    1 (NCCL), 2 and 4 (gloo ranks sharing the card, collectives staged
+    through host memory), each held to world 1; the submap pipeline at world
+    3 held to its serial run on the card. Returns the kernels' launches over
+    every rank of every world and the serial run."""
+    from onepiece_tpu_torch import _build
+    from onepiece_tpu_torch.io import trajectory as traj
+    from onepiece_tpu_torch.odometry import dense
+    from onepiece_tpu_torch.parallel import drive, launch
+    from onepiece_tpu_torch.parallel import submap as psubmap
+    from onepiece_tpu_torch.registration import icp
+
+    t_phase = time.perf_counter()
+    inp = parallel_inputs(cam, grays, depths, est, fused, orbit_ba)
+    n_iters = sum(dense.DEFAULT_ITERS)
+    total = {k.name: 0 for k in _build.KERNELS}
+    st = fused._state
+
+    # -- the submap pipeline's frames (read by the ranks from .npy files) and its serial run on the card --
+    h, w = cam.height, cam.width
+    sg = s_grays.cpu().numpy().reshape(SUBMAP_WORLD, -1, h, w)
+    sd = s_depths.cpu().numpy().reshape(SUBMAP_WORLD, -1, h, w)
+    paths = {}
+    for name, a in (("grays", sg), ("depths", sd)):
+        paths[name] = str(Path(root) / f"submap_{name}.npy")
+        np.save(paths[name], a)
+    kw = dict(cloud_capacity=SUBMAP_CLOUD_CAPACITY)
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ser = psubmap.submap_pipeline_serial(sg, sd, cam, dev, **kw)
+    torch.cuda.synchronize()
+    serial_s = time.perf_counter() - t
+    ser_launches = {k.name: k.launches for k in _build.KERNELS}
+
+    # -- world 1 over NCCL; worlds 2 and 4, and the submap pipeline at 3, in one set of 4 gloo ranks --
+    t = time.perf_counter()
+    runs = {1: launch.spawn(1, drive.run_modules, inp, drive.MODULES, False, backend="nccl", device="cuda",
+                            timeout=PARALLEL_TIMEOUT_S)}
+    spawn_s = {"nccl": time.perf_counter() - t}
+    t = time.perf_counter()
+    gloo = launch.spawn(max(PARALLEL_GLOO_WORLDS), drive.run_worlds, inp, PARALLEL_GLOO_WORLDS,
+                        dict(camera=cam, kwargs=kw, **paths), SUBMAP_WORLD, backend="gloo", device="cuda",
+                        timeout=PARALLEL_TIMEOUT_S)
+    spawn_s["gloo"] = time.perf_counter() - t
+    for world in PARALLEL_GLOO_WORLDS:
+        runs[world] = [r["modules"][world] for r in gloo if world in r["modules"]]
+    runs[SUBMAP_WORLD] = [r["submap"] for r in gloo if "submap" in r]
+    for world, ranks in runs.items():
+        for rank in ranks:
+            for res in (rank.values() if world != SUBMAP_WORLD else [rank]):
+                for k, n in res["launches"].items():
+                    total[k] += n
+    ref = runs[1][0]
+    # world 1 is the unsharded fused loop of phase 5: the same pool and table, bit for bit
+    if (ref["fused"]["pool_digest"], ref["fused"]["table_digest"]) != (
+            drive.digest(st.vox[:-1]), drive.digest(torch.cat([t.reshape(-1) for t in st.table]))):
+        raise AssertionError("phase 15 fused, world 1: the pool or table differs from phase 5's FusedDenseFusion")
+    world1 = world1_against_unsharded(cam, dev, grays, depths, fused, orbit_ba, ref)
+    seconds = {}
+    for world in (1, *PARALLEL_GLOO_WORLDS):
+        backend = "nccl" if world == 1 else "gloo"
+        seconds[world] = sum(res["seconds"] for res in runs[world][0].values())
+        lines = check_world(world, runs[world], ref, len(grays), n_iters) if world > 1 else [
+            *world1, "fused: pool and table bit-equal to phase 5's FusedDenseFusion, num_active "
+            f"{ref['fused']['num_active']}"]
+        print(f"phase 15 world {world} ({backend}{', collectives staged through the host' if backend == 'gloo' else ''}"
+              f"): the modules {seconds[world]:.2f} s on rank 0; " + "; ".join(lines), flush=True)
+        for name, res in runs[world][0].items():
+            print(f"phase 15 world {world} {name}: {res['seconds'] * 1e3:.1f} ms on rank 0; collectives of rank 0: "
+                  f"{comm_line(res['comm'])}", flush=True)
+
+    # -- the submap pipeline: sharded (one submap a rank) against serial --
+    sh = runs[SUBMAP_WORLD]
+    seconds[SUBMAP_WORLD] = sh[0]["seconds"]
+    f = sg.shape[1]
+    icp_calls = [int(r > 0) + max(r - 1, 0) for r in range(SUBMAP_WORLD)]
+    for r, rank in enumerate(sh):
+        want = (n_iters * (f - 1 + int(r > 0)), (icp.DEFAULT_ITERS + 1) * icp_calls[r])
+        got = (rank["launches"]["dense_normal_eq"], rank["launches"]["nn1"])
+        if got != want:
+            raise AssertionError(f"phase 15 submap rank {r}: (dense_normal_eq, nn1) launches {got}, expected {want}")
+        if not np.array_equal(rank["out"]["frame_poses"], sh[0]["out"]["frame_poses"]):
+            raise AssertionError("phase 15 submap: the ranks' trajectories differ")
+    for k, n in ser_launches.items():
+        total[k] += n
+    if ser_launches["nn1"] != sum(r["launches"]["nn1"] for r in sh):
+        raise AssertionError(f"phase 15 submap: serial nn1 launches {ser_launches['nn1']} != the ranks' sum")
+    o = sh[0]["out"]
+    both = o["geos"].valid & ser.geos.valid.cpu().numpy()
+    if not np.array_equal(o["geos"].valid, ser.geos.valid.cpu().numpy()):
+        raise AssertionError("phase 15 submap: the clouds' valid masks differ from the serial run's")
+    cloud_err = float(np.abs(o["geos"].points - ser.geos.points.cpu().numpy())[both].max())
+    ev = o["edges"].valid
+    if not np.array_equal(ev, ser.edges.valid.cpu().numpy()):
+        raise AssertionError(f"phase 15 submap: edges {ev} against the serial run's {ser.edges.valid}")
+    edge_err = float(np.abs(o["edges"].T - ser.edges.T.cpu().numpy())[ev].max()) if ev.any() else 0.0
+    base_err = float(np.abs(o["base_raw"] - ser.base_raw).max())
+    pose_err = float(np.abs(o["frame_poses"][:, :3, 3] - ser.frame_poses[:, :3, 3]).max())
+    bit_equal = all(np.array_equal(a, b) for a, b in ((o["frame_poses"], ser.frame_poses),
+                                                     (o["geos"].points, ser.geos.points.cpu().numpy()),
+                                                     (o["edges"].T, ser.edges.T.cpu().numpy())))
+    if not (max(cloud_err, edge_err, base_err) <= SUBMAP_STAGE_TOL and pose_err <= SUBMAP_POSE_TOL_M):
+        raise AssertionError(f"phase 15 submap: clouds {cloud_err}, edges {edge_err}, base poses {base_err} "
+                             f"(<= {SUBMAP_STAGE_TOL}); frame positions {pose_err} m (<= {SUBMAP_POSE_TOL_M})")
+    ate_ser, ate_sh = traj.ate_rmse(ser.frame_poses, slam_gt), traj.ate_rmse(o["frame_poses"], slam_gt)
+    print(f"phase 15 submap pipeline, {SUBMAP_WORLD} submaps x {f} frames of the 640x480 loop: serial on the card "
+          f"{serial_s:.2f} s, sharded over {SUBMAP_WORLD} gloo ranks {sh[0]['seconds']:.2f} s on rank 0; sharded "
+          f"against serial: bit-equal {bit_equal}, largest differences clouds {cloud_err:.3g}, edges {edge_err:.3g}, "
+          f"odometry base poses {base_err:.3g}, frame positions {pose_err:.3g} m; edges valid {ev.tolist()}; ATE "
+          f"serial {ate_ser * 1e3:.4f} mm, sharded {ate_sh * 1e3:.4f} mm; launches a rank (dense_normal_eq, nn1) "
+          f"{[(r['launches']['dense_normal_eq'], r['launches']['nn1']) for r in sh]}, serial "
+          f"{(ser_launches['dense_normal_eq'], ser_launches['nn1'])}; collectives of rank 0: "
+          f"{comm_line(sh[0]['comm'])} on {card}", flush=True)
+    print(f"phase 15 spawns, the ranks' start included: NCCL world 1 {spawn_s['nccl']:.1f} s, the 4 gloo ranks "
+          f"(worlds {', '.join(map(str, PARALLEL_GLOO_WORLDS))} and the submap world {SUBMAP_WORLD}) "
+          f"{spawn_s['gloo']:.1f} s", flush=True)
+    out = dict(launches=total, seconds=time.perf_counter() - t_phase, world_seconds=seconds, spawn_seconds=spawn_s,
+               submap=dict(bit_equal=bit_equal, pose_err_m=pose_err, ate_m=ate_sh))
+    print(f"phase 15 took {out['seconds']:.1f} s (the modules of rank 0 a world: "
+          f"{', '.join(f'{w}: {s:.2f} s' for w, s in seconds.items())}); "
+          f"the script so far {time.perf_counter() - t_script:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     # ---- 1. the card ------------------------------------------------------
     t_script = time.perf_counter()
@@ -2536,6 +2864,8 @@ def main() -> int:
               f"p95 {np.percentile(times, 95):.3f} (runs {[round(t, 3) for t in times]}) on {card}",
               flush=True)
         slice_runs[form] = (est, slam._state.vox[body])
+        if form == "gray":
+            fused_est = est  # phase 15 fuses these poses again, sharded
         slice_slams[form] = slam  # meshed in phase 8
         del slam, vol
     # tracking reads gray only: the rgb run has the gray run's poses, sdf and
@@ -2659,6 +2989,9 @@ def main() -> int:
         phase13 = host_loop_phase(cam, dev, card, poses, grays, depths, phase9, root, t_script)
         # ---- 14. scene analysis and visualisation on the fused orbit's mesh, the slice's CLIs ----
         phase14 = scene_phase(cam, dev, card, scene, poses, slice_slams["gray"], root, t_script)
+        # ---- 15. parallel/ across ranks: NCCL at world 1, gloo ranks sharing the card at 2, 3 and 4 ----
+        phase15 = parallel_phase(cam, dev, card, grays, depths, fused_est, slice_slams["gray"], s_grays, s_depths,
+                                 slam_gt, phase10["orbit_ba"], root, t_script)
     results["ba_schur"].update({f"ba_test_2d_{k}": v for k, v in phase12["ba_test_2d"].items()})
     results["hamming"]["host_loop_mild_rel_err"] = phase13["fba_orbit"]["mild_rel_err"]
     results["ba_schur"]["host_loop_rel_errs"] = phase13["ba_loop"]["schur_rel_errs"]
@@ -2673,7 +3006,7 @@ def main() -> int:
     kernels = [
         dict(name=k.name, route="cuda", source=k.source, replaces=k.replaces,
              launches=sum(n[k.name] for n in counted_in.get(k.name, path_launches)),
-             **results[k.name],
+             phase15_launches=phase15["launches"][k.name], **results[k.name],
              roofline_share=results[k.name]["bound_ms"] / results[k.name]["ms"], library_ms=None)
         for k in _build.KERNELS
     ]

@@ -179,10 +179,10 @@ _SIGNATURES = {
     "mild_feature_scores": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP, _VP],
     # poses, points, frame, point, uv or pc_obs, model (0 2-D, 1 RGB-D), lam (device), fx, fy, cx, cy,
     # frame_ptr, frame_obs, point_ptr, point_obs, frame_point, live_frames, num_live (device), F, P, S, rhs, Vinv,
-    # b_p, per-observation scratch, stream
+    # b_p, per-observation scratch, U_out (null: U damped into S), stream
     "ba_schur": [
         _VP, _VP, _VP, _VP, _VP, _I, _VP, _F, _F, _F, _F, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _VP, _VP, _VP,
-        _VP, _VP, _VP,
+        _VP, _VP, _VP, _VP,
     ],
     # frame, point_ptr, point_obs, per-observation scratch, Vinv, b_p, dc, P, dp, stream
     "ba_back_substitute": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP, _VP],

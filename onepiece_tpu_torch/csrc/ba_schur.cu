@@ -19,6 +19,9 @@
 // Two observations of one point in one frame give the same sums as the
 // dense form: (W1 + W2) V^-1 (W1 + W2)^T expands to the pairs.
 // damp(M) adds lam |M_ii| + (1e-6 tr(M) / n + 1e-9) to each diagonal entry.
+// With U_out given (not null), U_f goes into S undamped and is also written
+// to U_out (F, 6, 6): a point-sharded step (parallel/ba.py) sums S and U over
+// its shards and damps U once, after the sum, as the JAX package does.
 //
 // What bounds it on Hopper: neither rate. A pair of observations of one
 // point costs 216 float operations (a 6x6 block of 3-term dots), an
@@ -524,7 +527,7 @@ ba_blocks_kernel(const float* __restrict__ lam_p, const int64_t* __restrict__ fr
                  const int64_t* __restrict__ frame_obs, const int64_t* __restrict__ frame_point,
                  const int64_t* __restrict__ live_frames, const int64_t* __restrict__ num_live, int F,
                  const float* __restrict__ bp, const float* __restrict__ per_obs, float* __restrict__ S,
-                 float* __restrict__ rhs) {
+                 float* __restrict__ rhs, float* __restrict__ U_out) {
     __shared__ int s_key[kChunk];  // f's points, ascending
     __shared__ int s_obs[kChunk];  // their observations
     __shared__ float s_Y[kChunk * 18];  // their Y rows
@@ -571,8 +574,13 @@ ba_blocks_kernel(const float* __restrict__ lam_p, const int64_t* __restrict__ fr
         const float lam = *lam_p, base = 1e-6f * d + 1e-9f;
         const int e = 2 * lane, r = e / 6, c = e % 6;  // entries (r, c) and (r, c + 1)
         float u0 = lo, u1 = hi;
-        if (r == c) u0 = u0 + (lam * fabsf(u0) + base);
-        if (r == c + 1) u1 = u1 + (lam * fabsf(u1) + base);
+        if (U_out) {  // U_f undamped into S, and written out: the caller damps the sum over shards
+            U_out[36 * f + e] = u0;
+            U_out[36 * f + e + 1] = u1;
+        } else {
+            if (r == c) u0 = u0 + (lam * fabsf(u0) + base);
+            if (r == c + 1) u1 = u1 + (lam * fabsf(u1) + base);
+        }
         float* s = rows + r * n6 + 6 * f + c;
         s[0] = s[0] + u0;
         s[1] = s[1] + u1;
@@ -620,13 +628,13 @@ extern "C" int ba_schur(const float* poses, const float* points, const int64_t* 
                         const int64_t* frame_ptr, const int64_t* frame_obs, const int64_t* point_ptr,
                         const int64_t* point_obs, const int64_t* frame_point, const int64_t* live_frames,
                         const int64_t* num_live, int F, int P, float* S, float* rhs, float* Vinv, float* bp,
-                        float* per_obs, cudaStream_t stream) {
+                        float* per_obs, float* U_out, cudaStream_t stream) {
     ba_points_kernel<<<(P + kWarpsA - 1) / kWarpsA, kWarpsA * 32, 0, stream>>>(
         poses, points, frame, point, meas, model, lam, fx, fy, cx, cy, point_ptr, point_obs, P, Vinv, bp, per_obs);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     ba_blocks_kernel<<<F, kThreadsB, 0, stream>>>(lam, frame_ptr, frame_obs, frame_point, live_frames, num_live, F,
-                                                  bp, per_obs, S, rhs);
+                                                  bp, per_obs, S, rhs, U_out);
     return cudaGetLastError();
 }
 

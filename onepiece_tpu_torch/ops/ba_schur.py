@@ -72,6 +72,7 @@ class SchurSystem(NamedTuple):
     Vinv: torch.Tensor  # (P, 3, 3) inverse of the damped point blocks
     b_p: torch.Tensor  # (P, 3)
     W: torch.Tensor  # (O, 6, 3) per observation (the kernel writes only the listed rows)
+    U: torch.Tensor | None = None  # (F, 6, 6) undamped U blocks, with `undamped_u` only
 
 
 def residuals_jacobians_2d(poses, points, frame, point, uv, valid, fx, fy, cx, cy):
@@ -195,7 +196,8 @@ def build_lists(frame, point, valid, num_frames: int, num_points: int) -> ObsLis
     return ObsLists(fp, fo, pp, po, frame_point, live_frames, live.sum())
 
 
-def reduced_system_reference(poses, points, frame, point, uv, valid, lam, intr, pc_obs=None) -> SchurSystem:
+def reduced_system_reference(poses, points, frame, point, uv, valid, lam, intr, pc_obs=None,
+                             undamped_u: bool = False) -> SchurSystem:
     """Plain version: JAX's dense formulation (`bundle.py:246-280`)."""
     F, P = poses.shape[0], points.shape[0]
     r, J_pose, J_point, w = _linearize(poses, points, frame, point, uv, valid, intr, pc_obs)
@@ -205,7 +207,8 @@ def reduced_system_reference(poses, points, frame, point, uv, valid, lam, intr, 
     W = torch.einsum("oki,ok,okj->oij", J_pose, w, J_point)
     b_c = torch.zeros((F, 6), **dt).index_add_(0, frame, torch.einsum("oki,ok,ok->oi", J_pose, w, r))
     b_p = torch.zeros((P, 3), **dt).index_add_(0, point, torch.einsum("oki,ok,ok->oi", J_point, w, r))
-    U = damp(U, lam)
+    if not undamped_u:
+        U = damp(U, lam)
     Vinv = inv3(damp(V, lam))
     Wd = torch.zeros((F, P, 6, 3), **dt).index_put_((frame, point), W, accumulate=True).permute(0, 2, 1, 3)
     Y = torch.einsum("fipk,pkl->fipl", Wd, Vinv)
@@ -213,7 +216,7 @@ def reduced_system_reference(poses, points, frame, point, uv, valid, lam, intr, 
     S = -Ym @ Wd.reshape(F * 6, P * 3).T
     S = S + torch.block_diag(*U)
     rhs_c = b_c.reshape(F * 6) - Ym @ b_p.reshape(P * 3)
-    return SchurSystem(S, rhs_c, Vinv, b_p, W)
+    return SchurSystem(S, rhs_c, Vinv, b_p, W, U if undamped_u else None)
 
 
 def back_substitute_reference(system: SchurSystem, dc, frame, point) -> torch.Tensor:
@@ -241,7 +244,7 @@ def _check_inputs(poses, points, frame, point, uv, pc_obs, lam, lists: ObsLists)
         _build.require(t, name, torch.int64, shape, dev)
 
 
-def _reduced_system_cuda(poses, points, frame, point, uv, lam, intr, pc_obs, lists) -> SchurSystem:
+def _reduced_system_cuda(poses, points, frame, point, uv, lam, intr, pc_obs, lists, undamped_u) -> SchurSystem:
     _check_inputs(poses, points, frame, point, uv, pc_obs, lam, lists)
     dev = poses.device
     F, P, O = poses.shape[0], points.shape[0], frame.shape[0]
@@ -251,16 +254,17 @@ def _reduced_system_cuda(poses, points, frame, point, uv, lam, intr, pc_obs, lis
     Vinv = torch.empty((P, 3, 3), **e)
     b_p = torch.empty((P, 3), **e)
     per_obs = torch.empty((O, OBS_ROW), **e)  # W, Y = W V^-1, U_o, J_c^T w r: scratch of launch A
+    U = torch.empty((F, 6, 6), **e) if undamped_u else None
     err = _build.library().ba_schur(
         poses.data_ptr(), points.data_ptr(), frame.data_ptr(), point.data_ptr(),
         uv.data_ptr() if pc_obs is None else pc_obs.data_ptr(), int(pc_obs is not None), lam.data_ptr(),
         *(float(x) for x in intr), *(t.data_ptr() for t in lists), F, P,
         S.data_ptr(), rhs.data_ptr(), Vinv.data_ptr(), b_p.data_ptr(), per_obs.data_ptr(),
-        _build.stream_handle(poses),
+        None if U is None else U.data_ptr(), _build.stream_handle(poses),
     )
     _build.check(err, _build.BA_SCHUR)
     _build.BA_SCHUR.launches += 1
-    return SchurSystem(S, rhs, Vinv, b_p, per_obs[:, :18].reshape(O, 6, 3))
+    return SchurSystem(S, rhs, Vinv, b_p, per_obs[:, :18].reshape(O, 6, 3), U)
 
 
 def _back_substitute_cuda(system: SchurSystem, dc, frame, lists: ObsLists) -> torch.Tensor:
@@ -270,7 +274,7 @@ def _back_substitute_cuda(system: SchurSystem, dc, frame, lists: ObsLists) -> to
     _build.require(frame, "frame", torch.int64, (O,), dev)
     _build.require(lists.point_ptr, "point_ptr", torch.int64, (P + 1,), dev)
     _build.require(lists.point_obs, "point_obs", torch.int64, (O,), dev)
-    if system.W.shape != (O, 6, 3) or system.W.stride() != (OBS_ROW, 3, 1):
+    if system.W.shape != (O, 6, 3) or (O and system.W.stride() != (OBS_ROW, 3, 1)):
         raise ValueError("back_substitute: W must be the kernel's per-observation rows (reduced_system's)")
     dp = torch.empty((P, 3), dtype=torch.float32, device=dev)
     err = _build.library().ba_back_substitute(
@@ -284,18 +288,21 @@ def _back_substitute_cuda(system: SchurSystem, dc, frame, lists: ObsLists) -> to
 
 
 def reduced_system(poses, points, frame, point, uv, valid, lam, intr, pc_obs=None,
-                   lists: ObsLists | None = None) -> SchurSystem:
+                   lists: ObsLists | None = None, undamped_u: bool = False) -> SchurSystem:
     """The reduced camera system of one damped step: the CUDA kernel on CUDA
     tensors (over `lists`, the `build_lists` of these observations), the
     plain version on CPU tensors. `pc_obs` (O, 3) selects the RGB-D model,
     else the 2-D reprojection model over `uv`; `lam` is a 0-d float32
-    tensor; `intr` is (fx, fy, cx, cy)."""
+    tensor; `intr` is (fx, fy, cx, cy). With `undamped_u`, S holds U
+    undamped (S = U - W damp(V)^-1 W^T) and the system carries U's blocks
+    (`U`, (F, 6, 6)): a point-sharded step sums both over its shards and
+    damps U once, after the sum."""
     if poses.is_cuda:
         if lists is None:
             raise ValueError("reduced_system: the kernel needs the observation lists (build_lists)")
-        return _reduced_system_cuda(poses, points, frame, point, uv, lam, intr, pc_obs, lists)
+        return _reduced_system_cuda(poses, points, frame, point, uv, lam, intr, pc_obs, lists, undamped_u)
     if poses.device.type == "cpu":
-        return reduced_system_reference(poses, points, frame, point, uv, valid, lam, intr, pc_obs)
+        return reduced_system_reference(poses, points, frame, point, uv, valid, lam, intr, pc_obs, undamped_u)
     raise ValueError(f"reduced_system: unsupported device {poses.device}")
 
 

@@ -55,7 +55,8 @@ def _edge_blocks(T_src, T_dst, p_src, p_dst, valid):
     return Hss, Htt, Hst, bs, bt, cost
 
 
-def _gn_step(poses: torch.Tensor, edges: PoseGraphEdges):
+def _assemble(poses: torch.Tensor, edges: PoseGraphEdges):
+    """The normal equations of `edges`: (H (N, N, 6, 6), b (N, 6), cost)."""
     n = poses.shape[0]
     dev = poses.device
     ev = edges.edge_valid[:, None] & edges.valid
@@ -71,7 +72,13 @@ def _gn_step(poses: torch.Tensor, edges: PoseGraphEdges):
     b = torch.zeros((n, 6), dtype=torch.float32, device=dev)
     b.index_put_((edges.src,), bs, accumulate=True)
     b.index_put_((edges.dst,), bt, accumulate=True)
+    return H, b, torch.sum(cost)
 
+
+def _solve(poses: torch.Tensor, H: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The poses after the damped step of the normal equations (H, b)."""
+    n = poses.shape[0]
+    dev = poses.device
     Hd = H.permute(0, 2, 1, 3).reshape(n * 6, n * 6)
     # gauge fix: pose 0 stays where it is
     A = Hd[6:, 6:] + DAMPING * torch.eye(6 * (n - 1), dtype=torch.float32, device=dev)
@@ -83,7 +90,12 @@ def _gn_step(poses: torch.Tensor, edges: PoseGraphEdges):
     ok = torch.isfinite(delta).all() & (info == 0)
     delta = torch.where(ok, delta, 0.0)
     xi = torch.cat([torch.zeros((1, 6), dtype=torch.float32, device=dev), delta.reshape(n - 1, 6)])
-    return se3.se3_exp(xi) @ poses, torch.sum(cost)
+    return se3.se3_exp(xi) @ poses
+
+
+def _gn_step(poses: torch.Tensor, edges: PoseGraphEdges):
+    H, b, cost = _assemble(poses, edges)
+    return _solve(poses, H, b), cost
 
 
 def optimize_pose_graph(

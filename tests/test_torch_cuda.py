@@ -1213,3 +1213,91 @@ def test_triangle_mesh_on_the_card_repeats_bit_for_bit(dev):
                 assert torch.equal(x.cpu(), r), name
             else:
                 assert float((x.cpu() - r).abs().max()) <= 1e-6, (name, field)
+
+
+# ---- parallel/ on the card ---------------------------------------------------
+
+
+@pytest.mark.parametrize("world,backend", [(1, "nccl"), (2, "gloo")])
+def test_collectives_on_cuda_tensors(dev, world, backend):
+    """`comm.py`'s four collectives on CUDA tensors: NCCL carries them as
+    they are (one card: world 1), gloo through explicit host copies (ranks
+    sharing the card); values exact, results on the card, staging counted."""
+    from onepiece_tpu_torch.parallel import launch
+    from torch_parallel_ranks import collectives, expected_collectives
+
+    for r, got in enumerate(launch.spawn(world, collectives, backend=backend, device="cuda", timeout=240)):
+        for name, want in expected_collectives(r, world).items():
+            assert np.array_equal(got[name], want), (name, got[name], want)
+            assert got["devices"][name].startswith("cuda"), got["devices"]
+            staged = got["stats"][name]["staged_bytes"]
+            assert (staged > 0) if backend == "gloo" else (staged == 0), (name, staged)
+
+
+def test_nccl_refuses_more_ranks_than_cards(dev):
+    from onepiece_tpu_torch.parallel import launch
+    from torch_parallel_ranks import collectives
+
+    with pytest.raises(RuntimeError, match="backend='gloo'"):
+        launch.spawn(torch.cuda.device_count() + 1, collectives, backend="nccl", device="cuda")
+
+
+@pytest.mark.parametrize("model", ["3d", "2d"])
+@pytest.mark.parametrize("case", ["orbit", "loop", "frame_without_observations", "two_in_one_frame"])
+def test_ba_schur_kernel_undamped_u_vs_plain(dev, case, model):
+    """`reduced_system(undamped_u=True)` (the point-sharded step's call):
+    the kernel's U blocks, its S (U undamped on the diagonal) and rhs_c
+    within 1e-4 of the plain version's largest entry, at the damping LM
+    reaches after rejections (phase 10's rule for both models there);
+    damping the kernel's U afterwards gives the damped call's S; one launch
+    a call, two calls bit-equal."""
+    from onepiece_tpu_torch.ops.ba_schur import damp
+
+    args, _ = _ba_problem(case, model, dev)
+    args = (*args[:6], torch.tensor(BA_DAMPINGS[0], device=dev), *args[7:])
+    frame, point, valid, lam = args[2], args[3], args[5], args[6]
+    F = args[0].shape[0]
+    lists = ba_schur.build_lists(frame, point, valid, F, args[1].shape[0])
+    _build.reset_launch_counts()
+    k = ba_schur.reduced_system(*args, lists=lists, undamped_u=True)
+    assert _build.BA_SCHUR.launches == 1
+    k2 = ba_schur.reduced_system(*args, lists=lists, undamped_u=True)
+    p = ba_schur.reduced_system_reference(*args, undamped_u=True)
+    damped = ba_schur.reduced_system(*args, lists=lists)
+    torch.cuda.synchronize()
+    for name in ("S", "rhs_c", "U"):
+        assert torch.equal(getattr(k, name), getattr(k2, name)), name
+        assert _rel(getattr(k, name), getattr(p, name)) <= 1e-4, (name, _rel(getattr(k, name), getattr(p, name)))
+    redamped = k.S + torch.block_diag(*(damp(k.U, lam) - k.U))
+    assert _rel(redamped, damped.S) <= 1e-6
+    assert torch.equal(k.rhs_c, damped.rhs_c) and torch.equal(k.Vinv, damped.Vinv)
+
+
+def test_marching_cubes_on_extended_pools(dev, frames):
+    """The marching-cubes kernel on each shard's pool with the halo rows
+    appended and the neighbour slots remapped (`parallel/mc.py`), for 2 and
+    3 shards of a fused volume: the shards' triangles, in shard order, equal
+    the kernel's on the unsharded pool, bit for bit."""
+    from onepiece_tpu_torch.parallel import mc as pmc
+
+    _, grays, depths = frames
+    slam = FusedDenseFusion(CAM, device=dev, capacity=4096, table_size=1 << 14)
+    slam.process_chunk(grays, depths)
+    st = slam._state
+    whole = pmc.local_blocks(st.table, 0, slam.capacity)
+    want_v, want_c = mc.extract_triangles(st.vox, whole[0], whole[2], whole[1].contiguous(), slam.voxel_size)
+    assert want_v.shape[0] > 1000
+    for world in (2, 3):
+        cap_l = -(-slam.num_active // world)  # every shard holds blocks
+        got_v, got_c = [], []
+        for r in range(world):
+            lo = r * cap_l
+            slots, coords, nbr = pmc.local_blocks(st.table, lo, cap_l)
+            want = pmc.halo_slots(nbr, lo, cap_l)
+            assert want.numel() > 0
+            vox_l = torch.cat([st.vox[lo : lo + cap_l], st.vox[-1:]])
+            ext, nbr_ext = pmc.extended_pool(vox_l, st.vox[want.long()], want, nbr, lo)
+            v, c = mc.extract_triangles(ext, slots, nbr_ext, coords.contiguous(), slam.voxel_size)
+            got_v.append(v)
+            got_c.append(c)
+        assert torch.equal(torch.cat(got_v), want_v) and torch.equal(torch.cat(got_c), want_c), world
