@@ -210,8 +210,27 @@ Phases, in order; any failure exits non-zero before the final `ok` line:
      the largest differences, the launches and the ATE printed). Prints each
      world's seconds and rank 0's collectives (calls, bytes, bytes staged
      through the host, ms)
+ 16. ScanNet input (`scannet_phase`) on the committed synthetic export
+     `tests/data/scannet_synth/` (8 colour JPEGs at 1296x968, 4:2:0, with
+     cv2's decode and remap hashes in its manifest), its 640x480 depth
+     rendered here at the fixture's poses and written as 16-bit PGM, frame
+     7's pose -inf: (a) every JPEG decoded bit-equal to cv2's; (b) aligned
+     to the depth grid bit-equal to cv2.remap's; (c) `torch_scannet_model.
+     reconstruct` at stride 1 with the counts at 0 (7 frames, 7 TSDF
+     launches, then 1 marching-cubes launch for the mesh), against its
+     device="cpu" run by the card tests' rule (blocks within 1 %, triangles
+     within 2 %, the two pools voxel by voxel with blocks matched by key:
+     weights equal, sdf within 5e-4, colour within 5e-3, at most 1e-4 of
+     the seen voxels outside; the card's pool meshed by the plain version
+     bit-equal to the kernel's mesh), scene distance median within one
+     voxel, the CLI as
+     a subprocess; (d) `torch_scannet_to_tum --max-frames 7` read back by
+     `TumSequence` (depth equal to the float32 formula on the PGMs, colour
+     to the aligned decode, groundtruth.txt within 1e-6). Prints ms a frame
+     of the JPEG decode, PGM read, align and bilateral + integrate, the
+     time to a mesh, the key pass's read-back and the neighbour slots
 Prints one JSON line of per-kernel results (launches: the counted runs of
-phases 5 (gray and rgb), 7, 8 and 14 together, for hamming phases 9's and
+phases 5 (gray and rgb), 7, 8, 14 and 16 together, for hamming phases 9's and
 13's, for ba_schur phases 10's and 13's; phase15_launches: phase 15's
 launches over every rank of every world and its serial submap run); ms: the kernels' device time per
 wrapper call from the profiler (from CUDA events around each single call
@@ -2651,6 +2670,235 @@ def parallel_phase(cam, dev, card, grays, depths, est, fused, s_grays, s_depths,
     return out
 
 
+SCANNET_UNTRACKED = 7  # the fixture frame whose pose is written as -inf, as ScanNet marks a lost frame
+SCANNET_VOXEL = 0.02  # tools/scannet_model.py's default voxel (truncation 5 voxels)
+SCANNET_RENDER_STEPS = 96  # the fixture's colour frames were rendered with 96 steps (its manifest)
+SCANNET_BLOCKS_TOL = 0.01  # card against CPU, the card tests' TSDFVolume rule: blocks within 1 %,
+SCANNET_TRIANGLES_TOL = 0.02  # triangles within 2 %, the card's pool meshed by the plain version bit-equal
+SCANNET_VOXEL_BAND = (5e-4, 5e-3, 1e-4)  # card pool against the CPU pool voxel by voxel, test_torch_scannet's rule:
+# weights equal, sdf within 5e-4, colour within 5e-3, at most 1e-4 of the seen voxels outside
+SCANNET_GT_TOL = 1e-6  # groundtruth.txt's translation and quaternion against the poses
+SCANNET_CLI_ARGS = ("--stride", "1")
+SCANNET_CLI_TIMEOUT_S = 300
+
+
+def pool_band(a, b, sdf_tol: float, color_tol: float) -> tuple[int, int, float, float]:
+    """Two TSDFVolumes' pools voxel by voxel, blocks matched by key through
+    `slot_of`; a block in one pool only is held against empty voxels. Of the
+    voxels seen (weight > 0) in either: (how many lie outside the band --
+    weights differ, sdf beyond `sdf_tol` or a colour channel beyond
+    `color_tol` --, how many are seen, the largest sdf and colour
+    differences where both saw the voxel)."""
+    keys = sorted(set(a.slot_of) | set(b.slot_of))
+
+    def fields(vol):
+        slots = torch.tensor([vol.slot_of.get(k, -1) for k in keys])
+        have = (slots >= 0).numpy()[:, None]
+        rows = slots.clamp(min=0)
+        sdf, w, color = (f.cpu()[rows].reshape(len(keys), 512, -1).numpy() for f in (vol.sdf, vol.weight, vol.color))
+        return sdf[..., 0], np.where(have, w[..., 0], 0.0), color
+
+    (sa, wa, ca), (sb, wb, cb) = fields(a), fields(b)
+    seen, both = (wa > 0) | (wb > 0), (wa > 0) & (wb > 0)
+    ds, dc = np.abs(sa - sb), np.abs(ca - cb).max(-1)
+    outside = seen & ((wa != wb) | (ds > sdf_tol) | (dc > color_tol))
+    return (int(outside.sum()), int(seen.sum()), float(ds[both].max(initial=0.0)),
+            float(dc[both].max(initial=0.0)))
+
+
+def scannet_phase(dev, card, scene, root: str, t_script: float) -> dict:
+    """Phase 16: the ScanNet input path on the committed synthetic export
+    (`tests/data/scannet_synth/`: 8 colour JPEGs at 1296x968 and their
+    manifest of cv2's results), its 640x480 depth rendered here at the
+    fixture's poses and written as 16-bit PGM, frame 7's pose -inf. (a) the
+    JPEG decoder and (b) the remap onto the depth grid against cv2's hashes;
+    (c) `tools/torch_scannet_model.reconstruct` with the launch counts at 0
+    (TSDF kernel once a frame, marching cubes once), against its CPU run,
+    the mesh against the scene, the CLI as a subprocess; (d) the TUM
+    converter read back by `TumSequence`. Prints ms a frame of each host
+    stage and of bilateral + integrate, and the time to a mesh."""
+    from scipy.spatial.transform import Rotation
+
+    from onepiece_tpu_torch import _build
+    from onepiece_tpu_torch.integration.blocks import TSDFVolume, neighbor_slots_device
+    from onepiece_tpu_torch.io import jpeg, pgm
+    from onepiece_tpu_torch.io import scannet as scannet_io
+    from onepiece_tpu_torch.io.ply import read_ply
+    from onepiece_tpu_torch.io.tum import TumSequence
+    from onepiece_tpu_torch.ops import marching_cubes as mc
+    from onepiece_tpu_torch.ops import tsdf as tsdf_ops
+    from onepiece_tpu_torch.ops.image import bilateral_filter
+    from onepiece_tpu_torch.utils import synthetic
+
+    tools = Path(__file__).resolve().parent / "tools"
+    sys.path.insert(0, str(tools))
+    import torch_make_scannet_fixture as fixture
+    import torch_scannet_model
+    import torch_scannet_to_tum
+    from _torch_common import write_mesh
+
+    t_phase = time.perf_counter()
+    zero = {k.name: 0 for k in _build.KERNELS}
+    manifest = json.loads((Path(fixture.FIXTURE_DIR) / "manifest.json").read_text())
+    ccam, dcam = fixture.COLOR_CAMERA, fixture.DEPTH_CAMERA
+    for name, c in (("color", ccam), ("depth", dcam)):
+        if manifest["cameras"][name] != {k: getattr(c, k) for k in manifest["cameras"][name]}:
+            raise AssertionError(f"scannet: the manifest's {name} camera is not the fixture tool's")
+    poses = np.asarray(manifest["poses"], np.float32)
+    n = len(poses)
+    depths = np.stack([
+        synthetic.render(scene, torch.from_numpy(p).to(dev), dcam.fx, dcam.fy, dcam.cx, dcam.cy, dcam.height,
+                         dcam.width, num_steps=SCANNET_RENDER_STEPS)[0].cpu().numpy()
+        for p in poses
+    ])
+    jpegs = [(Path(fixture.FIXTURE_DIR) / f["file"]).read_bytes() for f in manifest["frames"]]
+    export = os.path.join(root, "scannet_synth")
+    fixture.write_export(export, depths, poses, ccam, dcam, jpegs, untracked=(SCANNET_UNTRACKED,))
+
+    # -- (a) the decoder and (b) the remap against cv2's hashes; host ms a frame --
+    host_ms = {"jpeg decode": [], "pgm read": [], "align": []}
+    aligned, pgms = [], []
+    for i, (f, data) in enumerate(zip(manifest["frames"], jpegs)):
+        t = time.perf_counter()
+        img = jpeg.decode(data)
+        host_ms["jpeg decode"].append((time.perf_counter() - t) * 1e3)
+        if fixture.sha256(img) != f["decode_sha256"]:
+            raise AssertionError(f"scannet (a) frame {i}: the decode is not cv2's ({f['file']})")
+        t = time.perf_counter()
+        pgms.append(pgm.read_pgm(os.path.join(export, f"frame-{i:06d}.depth.pgm")))
+        host_ms["pgm read"].append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        aligned.append(scannet_io.align_color_to_depth(img, ccam, dcam))
+        host_ms["align"].append((time.perf_counter() - t) * 1e3)
+        if fixture.sha256(aligned[-1]) != f["remap_sha256"]:
+            raise AssertionError(f"scannet (b) frame {i}: the remap is not cv2's")
+    print(f"scannet (a) {n} JPEGs {ccam.width}x{ccam.height} 4:2:0 decoded bit-equal to cv2's decode "
+          f"(SHA-256 of the manifest); (b) aligned to {dcam.width}x{dcam.height} bit-equal to cv2.remap's", flush=True)
+
+    # -- (c) the reconstruction on the card, launches counted, against its CPU run --
+    used_frames = n - 1
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    vol, used = torch_scannet_model.reconstruct(export, SCANNET_VOXEL, 1, device=dev, log=lambda s: None)
+    torch.cuda.synchronize()
+    reconstruct_s = time.perf_counter() - t
+    counted({**zero, "tsdf_integrate": used_frames}, "phase 16 integrate")
+    ply = os.path.join(root, "scannet_model.ply")
+    nv, nf, mesh_s = write_mesh(vol, ply)
+    launches = counted({**zero, "tsdf_integrate": used_frames, "marching_cubes": 1}, "phase 16 ScanNet path")
+    if used != used_frames:
+        raise AssertionError(f"scannet (c): {used} frames integrated, expected {used_frames} (frame "
+                             f"{SCANNET_UNTRACKED}'s -inf pose skipped)")
+    vol_c, used_c = torch_scannet_model.reconstruct(export, SCANNET_VOXEL, 1, device="cpu", log=lambda s: None)
+    tv_k, tc_k = vol.extract_mesh()
+    tv_c, _ = vol_c.extract_mesh()
+    na = vol.num_active
+    coords = torch.from_numpy(vol.active_coords()).int()
+    vp, cp = mc.extract_triangles_reference(vol.vox.cpu(), torch.arange(na, dtype=torch.int32),
+                                            neighbor_slots_device(coords), coords, vol.voxel_size)
+    sdf_tol, color_tol, share = SCANNET_VOXEL_BAND
+    outside, seen, sdf_err, color_err = pool_band(vol, vol_c, sdf_tol, color_tol)
+    if not (used_c == used and abs(na - vol_c.num_active) <= SCANNET_BLOCKS_TOL * vol_c.num_active
+            and abs(len(tv_k) - len(tv_c)) <= SCANNET_TRIANGLES_TOL * len(tv_c)
+            and seen > 10000 and outside <= share * seen
+            and np.array_equal(tv_k, vp.numpy()) and np.array_equal(tc_k, cp.numpy())):
+        raise AssertionError(f"scannet (c) card against CPU: blocks {na} / {vol_c.num_active}, triangles "
+                             f"{len(tv_k)} / {len(tv_c)}, voxels outside the band {outside} of {seen} seen (sdf "
+                             f"{sdf_err:.3g}, colour {color_err:.3g}), the card's pool meshed by the plain version "
+                             f"equal: {np.array_equal(tv_k, vp.numpy()) and np.array_equal(tc_k, cp.numpy())}")
+    mesh = read_ply(ply)
+    med, p90 = scene_distance(scene, mesh["vertices"], np.eye(4, dtype=np.float32), dev)
+    if not (nf > 0 and len(mesh["faces"]) == nf and np.isfinite(mesh["vertices"]).all() and med <= SCANNET_VOXEL):
+        raise AssertionError(f"scannet (c): mesh of {nf} faces ({len(mesh['faces'])} in the PLY), scene distance "
+                             f"median {med} m > one voxel {SCANNET_VOXEL} m?")
+    print(f"scannet (c) reconstruct on the card, stride 1: {used} of {n} frames integrated (frame "
+          f"{SCANNET_UNTRACKED}'s -inf pose skipped), {na} blocks, key_saturated_frames "
+          f"{vol.key_saturated_frames} (max_blocks {vol.max_blocks}), launches {launches}; {reconstruct_s:.3f} s "
+          f"with the reads; mesh {nv} vertices {nf} faces in {mesh_s * 1e3:.1f} ms (marching cubes, dedup on the "
+          f"card, PLY); against device=\"cpu\": blocks {vol_c.num_active}, triangles {len(tv_k)} / {len(tv_c)} "
+          f"(within {SCANNET_BLOCKS_TOL:.0%} / {SCANNET_TRIANGLES_TOL:.0%}), voxels outside the band {outside} of "
+          f"{seen} seen (weights equal, sdf within {sdf_tol:g}: largest {sdf_err:.3g}, colour within {color_tol:g}: "
+          f"largest {color_err:.3g}; at most {share:g} of them), the card's pool meshed by the plain "
+          f"version bit-equal to the kernel's mesh; scene_distance median {med * 1e3:.3f} mm, p90 "
+          f"{p90 * 1e3:.3f} mm (voxel {SCANNET_VOXEL * 1e3:.0f} mm)", flush=True)
+
+    # bilateral + integrate a frame, frames preloaded; the key pass's read-back and the neighbour slots
+    seq = scannet_io.ScanNetSequence(export)
+    frames = [seq[i] for i in range(n) if i != SCANNET_UNTRACKED]
+    scale = torch.tensor(255.0, device=dev)
+    up = [(torch.from_numpy(d).to(dev), torch.from_numpy(c).to(dev).float() / scale, p.astype(np.float32))
+          for _, c, d, p in frames]
+    timed_vol = TSDFVolume(voxel_size=SCANNET_VOXEL, truncation=SCANNET_VOXEL * 5, device=dev)
+    integrate_ms, bilateral_ms, keys_ms = [], [], []
+    for d, c, p in up:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        d_f = bilateral_filter(d)
+        torch.cuda.synchronize()
+        bilateral_ms.append((time.perf_counter() - t) * 1e3)
+        timed_vol.integrate(d_f, c, p, seq.camera)
+        torch.cuda.synchronize()
+        integrate_ms.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        tsdf_ops.touched_block_keys(d, torch.from_numpy(p).to(dev), dcam.fx, dcam.fy, dcam.cx, dcam.cy,
+                                    SCANNET_VOXEL, SCANNET_VOXEL * 5, max_blocks=timed_vol.max_blocks).cpu()
+        keys_ms.append((time.perf_counter() - t) * 1e3)
+    coords_dev = torch.from_numpy(vol.active_coords()).to(dev, torch.int32)
+    nbr_ms = cuda_ms(lambda: neighbor_slots_device(coords_dev), reps=10)
+    t = time.perf_counter()
+    vol._neighbor_slots()
+    nbr_host_ms = (time.perf_counter() - t) * 1e3
+    stage = {k: float(np.median(v)) for k, v in host_ms.items()}
+    print(f"scannet ms a frame (median of {n}): " + ", ".join(f"{k} {v:.3f}" for k, v in stage.items())
+          + f"; bilateral + integrate {np.median(integrate_ms):.3f} (median of {len(integrate_ms)}, frames on the "
+          f"card; of it the bilateral filter {np.median(bilateral_ms):.3f}, the key pass and its read-back "
+          f"{np.median(keys_ms):.3f}, the rest the host's allocation and slot lists and the kernel); neighbour "
+          f"slots of {na} blocks "
+          f"on the card {nbr_ms:.3f} ms (the host dict loop, off the path: {nbr_host_ms:.1f} ms); time to a mesh "
+          f"{mesh_s * 1e3:.1f} ms on {card}", flush=True)
+
+    # -- the CLI as a subprocess --
+    done, cli_s = run_clis([("torch_scannet_model", [export, os.path.join(root, "scannet_cli.ply"),
+                                                     *SCANNET_CLI_ARGS])], root, SCANNET_CLI_TIMEOUT_S)
+    rc, stdout, stderr = done["torch_scannet_model"]
+    cli_mesh = read_ply(os.path.join(root, "scannet_cli.ply")) if rc == 0 else None
+    if rc != 0 or not len(cli_mesh["faces"]):
+        raise AssertionError(f"scannet (c) torch_scannet_model exit {rc}:\n{stdout[-2000:]}\n{stderr[-2000:]}")
+    print(f"scannet (c) tools/torch_scannet_model.py {' '.join(SCANNET_CLI_ARGS)} as a subprocess: exit 0 in "
+          f"{cli_s:.1f} s, PLY of {len(cli_mesh['faces'])} faces read back", flush=True)
+
+    # -- (d) the TUM converter, read back --
+    tum = os.path.join(root, "scannet_tum")
+    if torch_scannet_to_tum.main([export, tum, "--max-frames", str(used_frames)]) != 0:
+        raise AssertionError("scannet (d): torch_scannet_to_tum failed")
+    back = TumSequence(tum)
+    if len(back) != used_frames:
+        raise AssertionError(f"scannet (d): {len(back)} frames read back, expected {used_frames}")
+    for i in range(used_frames):
+        _, rgb, depth = back[i]
+        d16 = np.clip(pgms[i].astype(np.float32) / dcam.depth_scale * 5000.0, 0, 65535).astype(np.uint16)
+        if not (np.array_equal(depth, d16.astype(np.float32) / 5000.0) and np.array_equal(rgb, aligned[i])):
+            raise AssertionError(f"scannet (d) frame {i}: depth or colour differs from the formula / the aligned decode")
+    gt = [line.split() for line in Path(tum, "groundtruth.txt").read_text().splitlines()[1:]]
+    gt_err = max(max(np.abs(np.array(g[1:4], float) - poses[i][:3, 3]).max(),
+                     np.abs(np.array(g[4:], float)
+                            - Rotation.from_matrix(poses[i][:3, :3].astype(np.float64)).as_quat()).max())
+                 for i, g in enumerate(gt))
+    if not (len(gt) == used_frames and gt_err <= SCANNET_GT_TOL):
+        raise AssertionError(f"scannet (d): groundtruth.txt {len(gt)} lines, max error {gt_err} > {SCANNET_GT_TOL}")
+    print(f"scannet (d) torch_scannet_to_tum --max-frames {used_frames}: TumSequence reads {used_frames} frames, "
+          f"depth equal to the float32 formula on the PGMs, colour equal to the aligned decode, groundtruth.txt "
+          f"within {gt_err:.2g} of the poses", flush=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 16 (ScanNet) took {phase_s:.1f} s ({time.perf_counter() - t_script:.1f} s into the run)",
+          flush=True)
+    return dict(launches=launches, voxels=dict(outside=outside, seen=seen, sdf_err=sdf_err, color_err=color_err),
+                host_ms=stage, integrate_ms=float(np.median(integrate_ms)),
+                bilateral_ms=float(np.median(bilateral_ms)), keys_ms=float(np.median(keys_ms)),
+                mesh_ms=mesh_s * 1e3, seconds=phase_s)
+
+
 def main() -> int:
     # ---- 1. the card ------------------------------------------------------
     t_script = time.perf_counter()
@@ -2992,14 +3240,17 @@ def main() -> int:
         # ---- 15. parallel/ across ranks: NCCL at world 1, gloo ranks sharing the card at 2, 3 and 4 ----
         phase15 = parallel_phase(cam, dev, card, grays, depths, fused_est, slice_slams["gray"], s_grays, s_depths,
                                  slam_gt, phase10["orbit_ba"], root, t_script)
+        # ---- 16. ScanNet input: the JPEG decoder, the remap, the reconstruction and the converter ----
+        phase16 = scannet_phase(dev, card, scene, root, t_script)
     results["ba_schur"].update({f"ba_test_2d_{k}": v for k, v in phase12["ba_test_2d"].items()})
     results["hamming"]["host_loop_mild_rel_err"] = phase13["fba_orbit"]["mild_rel_err"]
     results["ba_schur"]["host_loop_rel_errs"] = phase13["ba_loop"]["schur_rel_errs"]
     path_launches.append(phase14["launches"])
+    path_launches.append(phase16["launches"])
 
     # the hamming launches are phases 9's and 13's counted runs, the ba_schur
     # launches phases 10's and 13's; the other four keep the counts of phases
-    # 5, 7, 8 and 14 (phase 11 prints its own). No single PyTorch call computes
+    # 5, 7, 8, 14 and 16 (phase 11 prints its own). No single PyTorch call computes
     # any of the six functions.
     counted_in = {_build.HAMMING.name: phase9["launches"] + phase13["launches"],
                   _build.BA_SCHUR.name: phase10["launches"] + phase13["launches"]}

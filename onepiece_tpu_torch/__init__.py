@@ -13,13 +13,15 @@ DenseSlam `systems/dense_slam.py`, meshing with the pipelined loop
 adjustment `systems/fused_ba.py`, real input and state `io/tum.py`,
 `io/png.py`, `utils/checkpoint.py`, the prefetch ring
 `io/native_loader.py` with the remaining I/O and tool modules, the
-host-loop systems, and scene analysis and visualisation):
+host-loop systems, scene analysis and visualisation, the multi-device
+layer `parallel/`, and ScanNet input `io/scannet.py`):
   geometry/      SE(3) math, pinhole camera (+ presets), Kabsch and normal
                  fitting, fixed-capacity point clouds, triangle meshes
                  (normals, clustering / QEM simplification, pruning)
   algorithm/     clustering, plane / line region growing, line arrangements,
                  room segmentation
-  native/        mesh_native.cpp (QEM, pruning; host C++ built by `_native.py`)
+  native/        mesh_native.cpp (QEM, pruning), jpeg_decode.cpp (baseline
+                 JPEG), remap.cpp (bilinear remap): host C++ built by `_native.py`
   viz/           software mesh renderer, mesh / gray / depth / trajectory PNGs
   ops/           image ops, dense Gauss-Newton steps (kernel), TSDF keys and
                  pool integration (kernel), brute-force kNN, exact 1-NN
@@ -37,7 +39,8 @@ host-loop systems, and scene analysis and visualisation):
   io/            trajectory IO, ATE / RPE, PLY meshes, PNG codec (zlib + numpy),
                  TUM RGB-D sequences read through the prefetch ring (decoder
                  processes), live-stream replay, the C++ reference's cube
-                 format, OBJ meshes
+                 format, OBJ meshes, ScanNet exports (with the port's JPEG
+                 and PGM readers)
   utils/         synthetic SDF renderer with exact ground-truth poses;
                  checkpoint / resume of the device-resident systems; the
                  configuration tree, timers, logging

@@ -60,6 +60,15 @@ class PinholeCamera:
         y = (uv[..., 1] - self.cy) * _recip(self.fy) * depth
         return torch.stack([x, y, depth], dim=-1)
 
+    def in_bounds(self, uv: torch.Tensor, margin: float = 0.0) -> torch.Tensor:
+        """Mask (...,) of pixel coords inside the image with a border margin."""
+        u, v = uv[..., 0], uv[..., 1]
+        return (u >= margin) & (u <= self.width - 1 - margin) & (v >= margin) & (v <= self.height - 1 - margin)
+
+    def intrinsic_matrix(self, device="cuda") -> torch.Tensor:
+        return torch.tensor([[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy], [0.0, 0.0, 1.0]],
+                            dtype=torch.float32, device=device)
+
     def backproject_grid(self, depth: torch.Tensor) -> torch.Tensor:
         """Depth image (H, W) -> camera-frame XYZ image (H, W, 3)."""
         h, w = depth.shape

@@ -349,3 +349,19 @@ def gauss_newton(
         return gauss_newton_reference(
             T, src_xyz, src_gray, tgt, fx, fy, cx, cy, lambda_depth, depth_diff_max, iters)
     raise ValueError(f"gauss_newton: unsupported device {src_xyz.device}")
+
+
+def normalize_intensity_scale(
+    src_gray: torch.Tensor,
+    src_valid: torch.Tensor,
+    tgt_gray_sampled: torch.Tensor,
+    sample_valid: torch.Tensor,
+) -> torch.Tensor:
+    """Mean-intensity ratio for exposure normalisation over the pixels valid
+    in both: the scale to apply to the target image (1 where the target's
+    mean is ~0)."""
+    m = (src_valid & sample_valid).to(torch.float32)
+    n = torch.clamp(torch.sum(m), min=1.0)
+    ms = torch.sum(src_gray * m) / n
+    mt = torch.sum(tgt_gray_sampled * m) / n
+    return torch.where(mt > 1e-6, ms / torch.clamp(mt, min=1e-6), 1.0)

@@ -47,6 +47,14 @@ def pyr_down(img: torch.Tensor) -> torch.Tensor:
     return gaussian_blur(img)[::2, ::2]
 
 
+def build_pyramid(img: torch.Tensor, levels: int) -> tuple[torch.Tensor, ...]:
+    """Level 0 is the input; each next level is pyrDown of the previous."""
+    out = [img]
+    for _ in range(levels - 1):
+        out.append(pyr_down(out[-1]))
+    return tuple(out)
+
+
 def sobel(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """3x3 Sobel (dx, dy), unscaled."""
     return _conv2d_same(img, _SOBEL_X), _conv2d_same(img, _SOBEL_X.T)
@@ -55,6 +63,27 @@ def sobel(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def box_sum3(img: torch.Tensor) -> torch.Tensor:
     """3x3 box sum with edge replication (validity-window counting)."""
     return _conv2d_same(img, np.ones((3, 3)))
+
+
+def scharr(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """3x3 Scharr gradients (dx, dy), unscaled."""
+    k = np.array([[-3.0, 0, 3], [-10, 0, 10], [-3, 0, 3]])
+    return _conv2d_same(img, k), _conv2d_same(img, k.T)
+
+
+def rgb_to_gray(rgb: torch.Tensor) -> torch.Tensor:
+    """(H, W, 3) uint8 or float -> (H, W) float32 in [0, 255] (BT.601 weights)."""
+    rgb = rgb.to(torch.float32)
+    return 0.299 * rgb[..., 0] + 0.587 * rgb[..., 1] + 0.114 * rgb[..., 2]
+
+
+def depth_to_meters(depth_raw: torch.Tensor, depth_scale: float) -> torch.Tensor:
+    """Raw integer depth -> float32 metres; zeros stay zero. The divisor is
+    a tensor on the depth's device, so the quotient is numpy's on every
+    device (the card divides by a host scalar as a product with its
+    reciprocal)."""
+    scale = torch.tensor(depth_scale, dtype=torch.float32, device=depth_raw.device)
+    return depth_raw.to(torch.float32) / scale
 
 
 def clip_depth(depth: torch.Tensor, near: float, far: float) -> torch.Tensor:

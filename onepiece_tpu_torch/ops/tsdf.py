@@ -187,3 +187,23 @@ def unpack_block_keys(keys) -> np.ndarray:
     k = np.asarray(keys)
     k = k[k != INVALID_KEY]
     return np.stack([(k >> 20) & 1023, (k >> 10) & 1023, k & 1023], -1).astype(np.int64) - 512
+
+
+def debug_point_cloud(
+    sdf: torch.Tensor,  # (B, 8, 8, 8) raw sdf (truncation-scaled metres)
+    weight: torch.Tensor,  # (B, 8, 8, 8)
+    block_coords: torch.Tensor,  # (B, 3) int
+    voxel_size: float,
+    truncation: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Near-surface voxel centres as a debug cloud, on the volume's device:
+    every voxel with weight != 0 and |sdf| < truncation, coloured gray by
+    |sdf| / truncation. Returns (points (B*512, 3), colors (B*512, 3),
+    valid (B*512,))."""
+    b = sdf.shape[0]
+    centers = voxel_centers_world(block_coords, voxel_size)  # (B, 512, 3)
+    s = sdf.reshape(b, -1)
+    w = weight.reshape(b, -1)
+    valid = (w != 0) & (torch.abs(s) < truncation)
+    g = torch.abs(s) / torch.tensor(truncation, dtype=s.dtype, device=s.device)
+    return centers.reshape(-1, 3), torch.stack([g, g, g], dim=-1).reshape(-1, 3), valid.reshape(-1)

@@ -122,6 +122,26 @@ def render(
     return depth, gray
 
 
+def render_sequence(
+    num_frames: int,
+    camera,
+    scene: Scene | None = None,
+    num_steps: int = 96,
+    device="cuda",
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Render the orbit on `device`: (depths (N, H, W), grays (N, H, W),
+    poses_wc (N, 4, 4)) as host arrays."""
+    scene = scene or default_scene(device)
+    poses = orbit_trajectory(num_frames)
+    depths, grays = [], []
+    for pose in poses:
+        d, g = render(scene, torch.from_numpy(pose).to(device), camera.fx, camera.fy, camera.cx, camera.cy,
+                      camera.height, camera.width, num_steps=num_steps)
+        depths.append(d.cpu().numpy())
+        grays.append(g.cpu().numpy())
+    return np.stack(depths), np.stack(grays), poses
+
+
 def _poses_from_twists(xis: list[np.ndarray]) -> np.ndarray:
     return se3.se3_exp(torch.from_numpy(np.stack(xis).astype(np.float32))).numpy()
 

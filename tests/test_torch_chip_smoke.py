@@ -145,3 +145,85 @@ def test_scene_phase_checks():
     assert cs.divider_split(np.array([0, 0, 1]), cents)
     assert not cs.divider_split(np.array([0, 1, 1]), cents)
     assert not cs.divider_split(np.array([0, 0, 0]), cents)
+
+
+def test_scannet_phase_rehearsed_on_the_cpu(tmp_path, monkeypatch):
+    """Phase 16 end to end on the CPU with the plain versions: the wrappers'
+    launch counts are bumped where the plain versions run (the kernels do
+    not exist here), CUDA timing is stubbed, the depth is rendered with 8
+    sphere-tracing steps and the CLI runs with --device cpu. Every check of
+    the phase runs: the decoder and remap hashes, 7 frames integrated with 7
+    TSDF and 1 marching-cubes counts, the CPU-against-CPU mesh rule, the
+    scene distance, the CLI and the converter read back."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as cs
+    from onepiece_tpu_torch import _build
+    from onepiece_tpu_torch.ops import marching_cubes as mc_ops
+    from onepiece_tpu_torch.ops import tsdf_slots
+    from onepiece_tpu_torch.utils import synthetic
+
+    def bumping(fn, kernel):
+        def run(*args, **kwargs):
+            kernel.launches += 1
+            return fn(*args, **kwargs)
+        return run
+
+    monkeypatch.setattr(tsdf_slots, "integrate_slots", bumping(tsdf_slots.integrate_slots, _build.TSDF_INTEGRATE))
+    monkeypatch.setattr(mc_ops, "extract_triangles", bumping(mc_ops.extract_triangles, _build.MARCHING_CUBES))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(cs, "cuda_ms", lambda fn, reps=20, warmup=3: 0.0)
+    monkeypatch.setattr(cs, "SCANNET_RENDER_STEPS", 8)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the CLI subprocess, pinned as this test is
+    monkeypatch.setattr(cs, "SCANNET_CLI_ARGS", (*cs.SCANNET_CLI_ARGS, "--device", "cpu"))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = cs.scannet_phase("cpu", "cpu rehearsal", synthetic.default_scene("cpu"), str(tmp_path), 0.0)
+    finally:
+        torch.set_num_threads(threads)
+    assert out["launches"]["tsdf_integrate"] == 7 and out["launches"]["marching_cubes"] == 1
+    assert sum(out["launches"].values()) == 8
+    assert out["voxels"]["outside"] == 0 and out["voxels"]["seen"] > 10000  # CPU against CPU: equal pools
+
+
+def test_pool_band_finds_wrong_voxels():
+    """Phase 16's voxel-by-voxel rule (`chip_smoke.pool_band`) finds a wrong
+    colour, a wrong sdf or a lost weight on a few voxels, and a block that
+    one pool lacks, where the block and triangle counts would not; blocks
+    are matched by key, not by slot."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as cs
+    from onepiece_tpu_torch.integration.blocks import TSDFVolume
+
+    rng = np.random.default_rng(0)
+    keys = [(0, 0, 0), (1, 0, 0), (0, 2, -1)]
+
+    def volume(order):
+        vol = TSDFVolume(voxel_size=0.02, truncation=0.1, device="cpu")
+        vol.allocate(np.asarray([keys[i] for i in order]))
+        return vol
+
+    a, b = volume([0, 1, 2]), volume([2, 0, 1])  # the same blocks in other slots
+    sdf = rng.uniform(-1, 1, (3, 512)).astype(np.float32)
+    w = rng.integers(0, 4, (3, 512)).astype(np.float32)
+    color = rng.uniform(0, 1, (3, 512, 3)).astype(np.float32)
+    for vol in (a, b):
+        for k, key in enumerate(keys):
+            row = vol.slot_of[key]
+            vol.sdf[row] = torch.from_numpy(sdf[k].reshape(8, 8, 8))
+            vol.weight[row] = torch.from_numpy(w[k].reshape(8, 8, 8))
+            vol.color[row] = torch.from_numpy(color[k].reshape(8, 8, 8, 3))
+    seen = int((w > 0).sum())
+    assert cs.pool_band(a, b, 5e-4, 5e-3) == (0, seen, 0.0, 0.0)
+    first = np.argwhere(w[1] > 0)[:3, 0]
+    row = b.slot_of[keys[1]]
+    b.color.view(-1, 512, 3)[row, first[0], 1] += 0.01
+    b.sdf.view(-1, 512)[row, first[1]] += 1e-3
+    b.weight.view(-1, 512)[row, first[2]] += 1.0
+    outside, n, sdf_err, color_err = cs.pool_band(a, b, 5e-4, 5e-3)
+    assert (outside, n) == (3, seen) and sdf_err > 5e-4 and color_err > 5e-3
+    c = volume([0, 1])  # the third block lost
+    for key in keys[:2]:
+        for f in ("sdf", "weight", "color"):
+            getattr(c, f)[c.slot_of[key]] = getattr(a, f)[a.slot_of[key]]
+    assert cs.pool_band(a, c, 5e-4, 5e-3)[:2] == (int((w[2] > 0).sum()), seen)

@@ -1301,3 +1301,50 @@ def test_marching_cubes_on_extended_pools(dev, frames):
             got_v.append(v)
             got_c.append(c)
         assert torch.equal(torch.cat(got_v), want_v) and torch.equal(torch.cat(got_c), want_c), world
+
+
+def test_scannet_model_on_the_card_against_the_cpu(dev, tmp_path):
+    """`tools/torch_scannet_model.reconstruct` on the committed ScanNet
+    fixture (its 1296x968 JPEGs, 640x480 depth rendered here at its poses,
+    frame 7 lost) on the card against its device="cpu" run: 7 frames
+    integrated (7 TSDF launches), blocks within 1 %, triangles within 2 %,
+    the pools voxel by voxel by `chip_smoke.pool_band` (weights equal, sdf
+    within 5e-4, colour within 5e-3, at most 1e-4 of the seen voxels
+    outside), and the card's pool meshed by the plain version equals the
+    kernel's mesh (one marching-cubes launch)."""
+    import json
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(repo / "tools"))
+    sys.path.insert(0, str(repo))
+    import chip_smoke
+    import torch_make_scannet_fixture as fixture
+    import torch_scannet_model
+
+    manifest = json.loads((Path(fixture.FIXTURE_DIR) / "manifest.json").read_text())
+    poses = np.asarray(manifest["poses"], np.float32)
+    c = fixture.DEPTH_CAMERA
+    scene = synthetic.default_scene(dev)
+    depths = [synthetic.render(scene, torch.from_numpy(p).to(dev), c.fx, c.fy, c.cx, c.cy, c.height, c.width,
+                               num_steps=manifest["render_steps"])[0].cpu().numpy() for p in poses]
+    jpegs = [(Path(fixture.FIXTURE_DIR) / f["file"]).read_bytes() for f in manifest["frames"]]
+    fixture.write_export(str(tmp_path), np.stack(depths), poses, fixture.COLOR_CAMERA, c, jpegs, untracked=(7,))
+    _build.reset_launch_counts()
+    vk, used = torch_scannet_model.reconstruct(str(tmp_path), 0.02, 1, device="cuda", log=lambda s: None)
+    tvk, tck = vk.extract_mesh()
+    assert used == 7 and _build.TSDF_INTEGRATE.launches == 7 and _build.MARCHING_CUBES.launches == 1
+    vc, _ = torch_scannet_model.reconstruct(str(tmp_path), 0.02, 1, device="cpu", log=lambda s: None)
+    tvc, _ = vc.extract_mesh()
+    assert abs(vk.num_active - vc.num_active) <= 0.01 * vc.num_active
+    assert abs(len(tvk) - len(tvc)) <= 0.02 * len(tvc) and len(tvk) > 10000
+    sdf_tol, color_tol, share = chip_smoke.SCANNET_VOXEL_BAND
+    outside, seen, _, _ = chip_smoke.pool_band(vk, vc, sdf_tol, color_tol)
+    assert seen > 10000 and outside <= share * seen
+    na = vk.num_active
+    coords = torch.from_numpy(vk.active_coords()).int()
+    vp, cp = mc.extract_triangles_reference(vk.vox.cpu(), torch.arange(na, dtype=torch.int32),
+                                            neighbor_slots_device(coords), coords, vk.voxel_size)
+    np.testing.assert_array_equal(tvk, vp.numpy())
+    np.testing.assert_array_equal(tck, cp.numpy())

@@ -107,7 +107,7 @@ def test_compact_and_ply_round_trip(tmp_path):
 
 
 def test_native_library_builds_from_the_ports_copy():
-    path = _native.build()
+    path = _native.build(_native.MESH_SOURCE)
     assert path.parent == _native.BUILD_DIR and path.exists()
     assert _native.MESH_SOURCE.parent.parent.name == "onepiece_tpu_torch"
     src = _native.MESH_SOURCE.read_text()
@@ -121,7 +121,6 @@ def test_native_build_failure_raises(tmp_path, monkeypatch):
     bad.write_text("this is not C++\n")
     monkeypatch.setattr(_native, "MESH_SOURCE", bad)
     monkeypatch.setattr(_native, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(_native, "_lib", None)
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
         _native.mesh_library()
     assert not list((tmp_path / "build").glob("*.so"))
