@@ -1,0 +1,8 @@
+"""The mild work of the traced scan, as the reference's recount tallies
+it (`reference/fused_ba.recount`)."""
+
+
+def count(cfg, mix, out, counts):
+    if not counts or not counts["mild"]["bytes"]:
+        return None
+    return counts["mild"]
