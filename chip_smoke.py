@@ -466,6 +466,29 @@ class SyncCounter:
         return wrapped
 
 
+class ProgramSyncs:
+    """The program's own count of its waits for the device inside the block:
+    its `sync.*` counters (`onepiece_tpu_torch/utils/tracing.py`), which
+    count while a profiler records. Enter it outside a `SyncCounter`, so
+    that the profiler starts and stops outside the sync debug mode."""
+
+    def __enter__(self) -> "ProgramSyncs":
+        self._prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
+        self._prof.__enter__()
+        self._start = self._total()
+        return self
+
+    def __exit__(self, *exc):
+        self.count = self._total() - self._start
+        return self._prof.__exit__(*exc)
+
+    @staticmethod
+    def _total() -> int:
+        from onepiece_tpu_torch.utils import tracing
+
+        return sum(n for name, n in tracing.counters().items() if name.startswith("sync."))
+
+
 def recording_icp_inputs(point_to_point, out: list):
     """point_to_point, appending each call's first nn1 inputs to `out`."""
 
@@ -861,21 +884,22 @@ def sparse_phase(cam, dev, scene, card, poses, grays, depths) -> dict:
     run_orbit()  # warm
     launches = []
     _build.reset_launch_counts()
-    with SyncCounter() as sc:
+    with ProgramSyncs() as ps, SyncCounter() as sc:
         slam, _ = run_orbit()
     launches.append(counted({**zero, "hamming": _build.HAMMING.launches}, "sparse orbit"))
     syncs = orbit_syncs = sc.count
     ate = orbit_ate = traj.ate_rmse(slam.trajectory(), poses)
-    orbit_reads = slam.host_reads
+    orbit_program_syncs = ps.count
     if not (launches[-1]["hamming"] >= 2 * (len(grays) - 1) and np.isfinite(slam.trajectory()).all()
-            and ate <= MAX_SPARSE_ATE_M and slam.edge_overflow == 0):
+            and ate <= MAX_SPARSE_ATE_M and slam.edge_overflow == 0 and ps.count == syncs):
         raise AssertionError(f"FusedFBASlam orbit: ATE {ate} m (<= {MAX_SPARSE_ATE_M}), overflow "
-                             f"{slam.edge_overflow}, launches {launches[-1]}")
+                             f"{slam.edge_overflow}, launches {launches[-1]}, host syncs {syncs}, counted by "
+                             f"the program {ps.count}")
     times = [run_orbit()[1] for _ in range(SPARSE_TIMED_RUNS)]
     print(f"FusedFBASlam 640x480 x {len(grays)} frames of the orbit, one chunk: ATE {ate * 1e3:.4f} mm, "
           f"{slam.num_kf} keyframes, {slam.num_edges} edges ({slam.lc_edges_total} LC), overflow "
           f"{slam.edge_overflow}, hamming launches {launches[-1]['hamming']}; host syncs {syncs} "
-          f"({syncs / len(grays):.2f} per frame; {slam.host_reads} of them the slice's own reads); ms/frame "
+          f"({syncs / len(grays):.2f} per frame; {ps.count} counted at the program's sites); ms/frame "
           f"over {SPARSE_TIMED_RUNS} runs after a warm run: median {np.median(times):.3f} "
           f"(runs {[round(t, 3) for t in times]}) on {card}", flush=True)
     orbit_ms = float(np.median(times))
@@ -899,7 +923,7 @@ def sparse_phase(cam, dev, scene, card, poses, grays, depths) -> dict:
 
     run_loop()  # warm
     _build.reset_launch_counts()
-    with SyncCounter() as sc:
+    with ProgramSyncs() as ps, SyncCounter() as sc:
         loop, _ = run_loop()
     launches.append(counted({**zero, "hamming": _build.HAMMING.launches}, "sparse loop"))
     syncs = sc.count
@@ -914,7 +938,7 @@ def sparse_phase(cam, dev, scene, card, poses, grays, depths) -> dict:
           f"{ate * 1e3:.4f} mm, {loop.num_kf} keyframes, {loop.num_edges} edges ({loop.lc_edges_total} LC), "
           f"capacities {loop.kf_capacity} keyframes / {loop.edge_capacity} edges ({loop.capacity_doublings} "
           f"doublings), overflow {loop.edge_overflow}, hamming launches {launches[-1]['hamming']}; host syncs "
-          f"{syncs} ({syncs / LOOP_FRAMES:.2f} per frame; {loop.host_reads} of them the slice's own reads); "
+          f"{syncs} ({syncs / LOOP_FRAMES:.2f} per frame; {ps.count} counted at the program's sites); "
           f"ms/frame over {LOOP_TIMED_RUNS} runs after a warm run: median {np.median(times):.3f} "
           f"(runs {[round(t, 3) for t in times]}) on {card}", flush=True)
     loop_ms = float(np.median(times))
@@ -984,7 +1008,7 @@ def sparse_phase(cam, dev, scene, card, poses, grays, depths) -> dict:
           f"{mesh_launches}; |scene sdf| at the vertices median {med * 1e3:.3f} mm, p90 {p90 * 1e3:.3f} mm",
           flush=True)
     return dict(kernel=kernel, launches=launches, loop=(loop_gt, l_grays, l_depths),
-                orbit=dict(ate=orbit_ate, syncs=orbit_syncs, host_reads=orbit_reads, ms=orbit_ms),
+                orbit=dict(ate=orbit_ate, syncs=orbit_syncs, program_syncs=orbit_program_syncs, ms=orbit_ms),
                 loop_ms=loop_ms)
 
 
@@ -1162,7 +1186,7 @@ def ba_phase(cam, dev, card, poses, grays, depths, sparse: dict) -> dict:
     # -- (c) FusedBASlam on the orbit, one chunk: launches, syncs, ATE, repeatability --
     launches = []
     _build.reset_launch_counts()
-    with SyncCounter() as sc:
+    with ProgramSyncs() as ps, SyncCounter() as sc:
         slam, _ = run(grays, depths, len(grays))
     launches.append(counted({**zero, "hamming": _build.HAMMING.launches, "ba_schur": 2 * BA_ITERS}, "BA orbit"))
     syncs = sc.count
@@ -1172,11 +1196,11 @@ def ba_phase(cam, dev, card, poses, grays, depths, sparse: dict) -> dict:
     limit = min(MAX_SPARSE_ATE_M, MAX_BA_WARM_RATIO * fba["ate"] + BA_WARM_SLACK_M)
     if not (launches[-1]["hamming"] > 0 and np.isfinite(est).all() and ate <= limit
             and np.isfinite(slam.ba_mse) and slam.pt_overflow == 0 and slam.obs_overflow == 0
-            and slam.edge_overflow == 0 and syncs == fba["syncs"] and slam.host_reads == fba["host_reads"]):
+            and slam.edge_overflow == 0 and syncs == fba["syncs"] and ps.count == fba["program_syncs"]):
         raise AssertionError(f"FusedBASlam orbit: ATE {ate} m (<= {limit}: FusedFBASlam's {fba['ate']}), BA mse "
                              f"{slam.ba_mse}, overflow points {slam.pt_overflow} observations {slam.obs_overflow} "
-                             f"edges {slam.edge_overflow}, host syncs {syncs} (FusedFBASlam {fba['syncs']}), reads "
-                             f"{slam.host_reads} ({fba['host_reads']}), launches {launches[-1]}")
+                             f"edges {slam.edge_overflow}, host syncs {syncs} (FusedFBASlam {fba['syncs']}), counted "
+                             f"by the program {ps.count} ({fba['program_syncs']}), launches {launches[-1]}")
     timed = [run(grays, depths, len(grays)) for _ in range(SPARSE_TIMED_RUNS)]
     if not np.array_equal(timed[0][0].trajectory(), est):
         raise AssertionError("FusedBASlam orbit: two runs gave different trajectories")
@@ -1211,8 +1235,8 @@ def ba_phase(cam, dev, card, poses, grays, depths, sparse: dict) -> dict:
           f"(FusedFBASlam {fba['ate'] * 1e3:.4f} mm; bound {limit * 1e3:.4f} mm), {slam.num_kf} keyframes, "
           f"{slam.n_pts} world points, {slam.n_obs} observations, BA mse {slam.ba_mse:.4g}, overflow points "
           f"{slam.pt_overflow} observations {slam.obs_overflow} edges {slam.edge_overflow}; launches "
-          f"{launches[-1]}; host syncs {syncs} (FusedFBASlam {fba['syncs']}; {slam.host_reads} of them the "
-          f"slice's own reads), two runs bit-equal; ms/frame over {SPARSE_TIMED_RUNS} runs after a warm run: "
+          f"{launches[-1]}; host syncs {syncs} (FusedFBASlam {fba['syncs']}; {ps.count} counted at the "
+          f"program's sites), two runs bit-equal; ms/frame over {SPARSE_TIMED_RUNS} runs after a warm run: "
           f"median {np.median(times):.3f} (runs {[round(t, 3) for t in times]}); ms a chunk: linker "
           f"{orbit_stage['linker']:.3f}, LM loop {orbit_stage['LM loop']:.3f} on {card}", flush=True)
     orbit_ms = float(np.median(times))
@@ -1220,7 +1244,7 @@ def ba_phase(cam, dev, card, poses, grays, depths, sparse: dict) -> dict:
     # -- (d) the 100-frame loop in chunks of 25 --
     n_chunks = -(-LOOP_FRAMES // LOOP_CHUNK)
     _build.reset_launch_counts()
-    with SyncCounter() as sc:
+    with ProgramSyncs() as ps, SyncCounter() as sc:
         loop, _ = run(l_grays, l_depths, LOOP_CHUNK)
     launches.append(counted({**zero, "hamming": _build.HAMMING.launches, "ba_schur": 2 * BA_ITERS * n_chunks},
                             "BA loop"))
@@ -1238,8 +1262,8 @@ def ba_phase(cam, dev, card, poses, grays, depths, sparse: dict) -> dict:
           f"{loop.n_pts} world points, {loop.n_obs} observations (capacities {loop.pt_capacity} / "
           f"{loop.obs_capacity}, keyframes {loop.kf_capacity}), BA mse {loop.ba_mse:.4g}, overflow points "
           f"{loop.pt_overflow} observations {loop.obs_overflow} edges {loop.edge_overflow}; launches "
-          f"{launches[-1]}; host syncs {syncs} ({syncs / LOOP_FRAMES:.2f} per frame; {loop.host_reads} the "
-          f"slice's own reads); ms/frame over {LOOP_TIMED_RUNS} runs after a warm run: median "
+          f"{launches[-1]}; host syncs {syncs} ({syncs / LOOP_FRAMES:.2f} per frame; {ps.count} counted at "
+          f"the program's sites); ms/frame over {LOOP_TIMED_RUNS} runs after a warm run: median "
           f"{np.median(times):.3f} (runs {[round(t, 3) for t in times]}); ms a chunk: linker "
           f"{loop_stage['linker']:.3f}, LM loop {loop_stage['LM loop']:.3f} on {card}", flush=True)
 

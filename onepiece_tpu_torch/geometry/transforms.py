@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import tracing
 from .se3 import make_T
 
 POWER_ITERS = 32  # kabsch_fast: iterations of the power method (on K^4: 8 products)
@@ -42,7 +43,8 @@ def kabsch(
     the smallest singular vector (D = diag(1, 1, det(U Vt)))."""
     w, mu_s, mu_d, sc, dc = _centre(src, dst, weights)
     H = torch.einsum("...ni,...nj->...ij", dc * w[..., None], sc)
-    U, _, Vt = torch.linalg.svd(H)
+    with tracing.sync("kabsch_svd", 2):  # on the card the library's SVD waits twice (sync debug mode "warn")
+        U, _, Vt = torch.linalg.svd(H)
     det = _det3(U @ Vt)
     one = torch.ones_like(det)
     D = torch.diag_embed(torch.stack([one, one, det], dim=-1))
@@ -89,22 +91,23 @@ def kabsch_fast(
     e0 = 0.5 * (
         torch.sum(torch.sum(sc * sc, -1) * w, -1) + torch.sum(torch.sum(dc * dc, -1) * w, -1)
     )[..., None, None]
-    Kp = K + e0 * torch.eye(4, dtype=K.dtype, device=K.device)
-    K2 = Kp @ Kp
-    K4 = K2 @ K2
-    K4 = K4 / torch.clamp(torch.sqrt(torch.sum(K4 * K4, dim=(-2, -1), keepdim=True)), min=1e-30)
-    v = _start_vector(K.dtype, K.device).expand(K.shape[:-1])
-    for _ in range(max(1, (POWER_ITERS + 3) // 4)):
-        v = (K4 @ v[..., None])[..., 0]
-    v = v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True), min=1e-30)
-    qw, qx, qy, qz = v.unbind(-1)
-    R = torch.stack([
-        torch.stack([1 - 2 * (qy * qy + qz * qz), 2 * (qx * qy - qz * qw), 2 * (qx * qz + qy * qw)], -1),
-        torch.stack([2 * (qx * qy + qz * qw), 1 - 2 * (qx * qx + qz * qz), 2 * (qy * qz - qx * qw)], -1),
-        torch.stack([2 * (qx * qz - qy * qw), 2 * (qy * qz + qx * qw), 1 - 2 * (qx * qx + qy * qy)], -1),
-    ], dim=-2)
-    t = mu_d - (R @ mu_s[..., None])[..., 0]
-    return make_T(R, t)
+    with tracing.span(".eigenvector"):  # of the caller's layer
+        Kp = K + e0 * torch.eye(4, dtype=K.dtype, device=K.device)
+        K2 = Kp @ Kp
+        K4 = K2 @ K2
+        K4 = K4 / torch.clamp(torch.sqrt(torch.sum(K4 * K4, dim=(-2, -1), keepdim=True)), min=1e-30)
+        v = _start_vector(K.dtype, K.device).expand(K.shape[:-1])
+        for _ in range(max(1, (POWER_ITERS + 3) // 4)):
+            v = (K4 @ v[..., None])[..., 0]
+        v = v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True), min=1e-30)
+        qw, qx, qy, qz = v.unbind(-1)
+        R = torch.stack([
+            torch.stack([1 - 2 * (qy * qy + qz * qz), 2 * (qx * qy - qz * qw), 2 * (qx * qz + qy * qw)], -1),
+            torch.stack([2 * (qx * qy + qz * qw), 1 - 2 * (qx * qx + qz * qz), 2 * (qy * qz - qx * qw)], -1),
+            torch.stack([2 * (qx * qz - qy * qw), 2 * (qy * qz + qx * qw), 1 - 2 * (qx * qx + qy * qy)], -1),
+        ], dim=-2)
+        t = mu_d - (R @ mu_s[..., None])[..., 0]
+        return make_T(R, t)
 
 
 def fit_plane(points: torch.Tensor, weights: torch.Tensor | None = None) -> torch.Tensor:

@@ -31,6 +31,7 @@ from ..geometry.camera import PinholeCamera
 from ..ops import marching_cubes as mc_ops
 from ..ops import tsdf as tsdf_ops
 from ..ops import tsdf_slots
+from ..utils import tracing
 
 # defaults of the reference (voxel 0.0125 m, truncation 0.1 m)
 DEFAULT_VOXEL_SIZE = 0.0125
@@ -46,7 +47,9 @@ def neighbor_slots_device(block_coords: torch.Tensor) -> torch.Tensor:
     if n == 0:
         return torch.zeros((0, 7), dtype=torch.int32, device=coords.device)
     keys, order = torch.sort(tsdf_ops.pack_block_keys(coords))
-    nbr = coords[:, None, :] + torch.from_numpy(mc_ops.NEIGHBOR_OFFSETS).to(coords.device)
+    with tracing.sync("mesh_offsets_upload"):
+        offsets = torch.from_numpy(mc_ops.NEIGHBOR_OFFSETS).to(coords.device)
+    nbr = coords[:, None, :] + offsets
     in_range = ((nbr >= -512) & (nbr <= 511)).all(-1)  # packing would clamp the rest onto real blocks
     nkeys = tsdf_ops.pack_block_keys(nbr)
     pos = torch.clamp(torch.searchsorted(keys, nkeys), max=n - 1)
@@ -194,12 +197,14 @@ class TSDFVolume:
         """Marching cubes over all active blocks -> (vertices (T, 3, 3),
         colors (T, 3, 3)) float32 tensors on the volume's device: the
         kernel meshes every block in one launch and caps nothing."""
-        na = self.num_active
-        coords = torch.from_numpy(self.block_coords[:na]).to(self.device, torch.int32)
-        return mc_ops.extract_triangles(
-            self.vox, torch.arange(na, dtype=torch.int32, device=self.device),
-            neighbor_slots_device(coords), coords, self.voxel_size,
-        )
+        with tracing.span("meshing.extract"):
+            na = self.num_active
+            with tracing.sync("mesh_coords_upload"):
+                coords = torch.from_numpy(self.block_coords[:na]).to(self.device, torch.int32)
+            return mc_ops.extract_triangles(
+                self.vox, torch.arange(na, dtype=torch.int32, device=self.device),
+                neighbor_slots_device(coords), coords, self.voxel_size,
+            )
 
     def extract_mesh(self, chunk: int = 128, cap_per_block: int = 96) -> tuple[np.ndarray, np.ndarray]:
         """`extract_mesh_tensors` copied to the host as float32 arrays, in the

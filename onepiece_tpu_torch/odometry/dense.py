@@ -23,6 +23,7 @@ from ..geometry import se3
 from ..geometry.camera import PinholeCamera
 from ..ops import dense_odometry as dops
 from ..ops import image as image_ops
+from ..utils import tracing
 
 MIN_DEPTH = 0.5
 MAX_DEPTH = 4.0
@@ -76,23 +77,25 @@ def preprocess_frame(
     `intensity_norm` (the per-frame half of the reference's
     NormalizeIntensity, DenseOdometryFunction.cpp:129-144) scales the gray
     image so that its mean over the valid-depth pixels is 0.5."""
-    g = image_ops.gaussian_blur(gray.to(torch.float32))
-    d = image_ops.clip_depth(depth.to(torch.float32), min_depth, max_depth)
-    if depth_blur:
-        vb = image_ops.gaussian_blur((d > 0).to(torch.float32))
-        d = torch.where(vb > 0.9999, image_ops.gaussian_blur(d), 0.0)
-    if intensity_norm:
-        m = (d > 0).to(torch.float32)
-        mean = torch.sum(g * m) / torch.clamp(torch.sum(m), min=1.0)
-        g = g * (0.5 / torch.clamp(mean, min=1e-6))
-    grays = [g]
-    depths = [d]
-    for _ in range(levels - 1):
-        grays.append(image_ops.pyr_down(grays[-1]))
-        depths.append(_depth_pyr_down(depths[-1]))
-    cams = camera.pyramid(levels)
-    xyzs = tuple(c.backproject_grid(dl) for c, dl in zip(cams, depths))
-    return FramePyramid(tuple(grays), tuple(depths), xyzs)
+    with tracing.span("tracking.preprocess"):
+        with tracing.span("tracking.smooth"):
+            g = image_ops.gaussian_blur(gray.to(torch.float32))
+            d = image_ops.clip_depth(depth.to(torch.float32), min_depth, max_depth)
+            if depth_blur:
+                vb = image_ops.gaussian_blur((d > 0).to(torch.float32))
+                d = torch.where(vb > 0.9999, image_ops.gaussian_blur(d), 0.0)
+            if intensity_norm:
+                m = (d > 0).to(torch.float32)
+                mean = torch.sum(g * m) / torch.clamp(torch.sum(m), min=1.0)
+                g = g * (0.5 / torch.clamp(mean, min=1e-6))
+        grays = [g]
+        depths = [d]
+        for _ in range(levels - 1):
+            grays.append(image_ops.pyr_down(grays[-1]))
+            depths.append(_depth_pyr_down(depths[-1]))
+        cams = camera.pyramid(levels)
+        xyzs = tuple(c.backproject_grid(dl) for c, dl in zip(cams, depths))
+        return FramePyramid(tuple(grays), tuple(depths), xyzs)
 
 
 def dense_tracking(
@@ -134,21 +137,23 @@ def dense_tracking(
         # gray, dx, dy of the term data scaled; depth and its gradients kept
         t_scale = torch.cat([s_t.expand(3), torch.ones(5, device=dev)])
     for li in reversed(range(levels)):  # coarsest first
-        tgt = dops.build_term_data(target.grays[li], target.depths[li], SOBEL_SCALE)
-        src_gray = source.grays[li]
-        if pair_norm:
-            tgt = dops.TermData(tgt.texels * t_scale)
-            src_gray = src_gray * s_s
-        cam = cams[li]
-        ne = dops.gauss_newton(
-            T, source.xyzs[li].reshape(-1, 3), src_gray.reshape(-1), tgt,
-            cam.fx, cam.fy, cam.cx, cam.cy, LAMBDA_HYBRID_DEPTH, depth_diff_max,
-            iters[levels - 1 - li],
-        )
+        with tracing.span("tracking.level", level=li):
+            tgt = dops.build_term_data(target.grays[li], target.depths[li], SOBEL_SCALE)
+            src_gray = source.grays[li]
+            if pair_norm:
+                tgt = dops.TermData(tgt.texels * t_scale)
+                src_gray = src_gray * s_s
+            cam = cams[li]
+            ne = dops.gauss_newton(
+                T, source.xyzs[li].reshape(-1, 3), src_gray.reshape(-1), tgt,
+                cam.fx, cam.fy, cam.cx, cam.cy, LAMBDA_HYBRID_DEPTH, depth_diff_max,
+                iters[levels - 1 - li],
+            )
     rmse = torch.sqrt(ne.cost / torch.clamp(ne.num_inliers, min=1.0))
     return DenseTrackingResult(T, ne.cost, ne.num_inliers, rmse)
 
 
 def chain_pose(T_w_source: torch.Tensor, T_ts: torch.Tensor) -> torch.Tensor:
     """T_w_target = T_w_source @ inv(T_ts)."""
-    return T_w_source @ se3.inverse_T(T_ts)
+    with tracing.span("tracking.chain"):
+        return T_w_source @ se3.inverse_T(T_ts)

@@ -28,6 +28,7 @@ import torch
 
 from ..geometry.camera import PinholeCamera
 from ..ops import hamming, ransac
+from ..utils import tracing
 from . import features as feat
 
 # reference thresholds (ref: src/Odometry/Odometry.cpp SparseTrackingMILD and
@@ -147,40 +148,47 @@ def _match_and_estimate(
     rematch_below: int | None = None,
     draws: Draws | None = None,
 ) -> SparseTrackingResult:
-    """Estimate T_ts mapping source-frame points onto the target frame's."""
+    """Estimate T_ts mapping source-frame points onto the target frame's.
+    Its stages are spans of the caller's layer (`.match`, `.ransac`,
+    `.rematch`, `.select`)."""
     # round 1: descriptor match + ratio test
-    idx, ok = hamming.match_descriptors(source.kp.desc, source.valid, target.kp.desc, target.valid)
-    src_pts = source.points
-    dst_pts = target.points[idx]
-    ok = ok & target.valid[idx]
-    for r in range(RANSAPC_ROUNDS):
-        ok = ransac.ransapc_filter(generator, src_pts, dst_pts, ok,
-                                   samples=None if draws is None else draws.anchors[r])
-    res1 = _ransac(generator, src_pts, dst_pts, ok, num_hypotheses, None if draws is None else draws.round1)
+    with tracing.span(".match"):
+        idx, ok = hamming.match_descriptors(source.kp.desc, source.valid, target.kp.desc, target.valid)
+        src_pts = source.points
+        dst_pts = target.points[idx]
+        ok = ok & target.valid[idx]
+        for r in range(RANSAPC_ROUNDS):
+            ok = ransac.ransapc_filter(generator, src_pts, dst_pts, ok,
+                                       samples=None if draws is None else draws.anchors[r])
+    with tracing.span(".ransac", round=1):
+        res1 = _ransac(generator, src_pts, dst_pts, ok, num_hypotheses, None if draws is None else draws.round1)
 
     # round 2: pose-guided re-match (ref: SparseMatcher.cpp:25-50)
-    pred = src_pts @ res1.T[:3, :3].T + res1.T[:3, 3]
-    uv_pred, _ = camera.project(pred)
-    idx2, ok2 = hamming.match_descriptors_windowed(
-        source.kp.desc, source.valid, target.kp.desc, target.valid, uv_pred, target.kp.uv,
-    )
-    dst2 = target.points[idx2]
-    ok2 = ok2 & target.valid[idx2]
-    res2 = _ransac(generator, src_pts, dst2, ok2, num_hypotheses, None if draws is None else draws.round2)
-    if rematch_below is not None:
-        # the JAX package's cond: below the gate round 2 runs, else it is round 1
-        run2 = res1.num_inliers < rematch_below
-        res2 = ransac.RansacResult(*(torch.where(run2, a, b) for a, b in zip(res2, res1)))
-        dst2 = torch.where(run2, dst2, dst_pts)
-        idx2 = torch.where(run2, idx2, idx)
+    with tracing.span(".rematch"):
+        pred = src_pts @ res1.T[:3, :3].T + res1.T[:3, 3]
+        uv_pred, _ = camera.project(pred)
+        idx2, ok2 = hamming.match_descriptors_windowed(
+            source.kp.desc, source.valid, target.kp.desc, target.valid, uv_pred, target.kp.uv,
+        )
+        dst2 = target.points[idx2]
+        ok2 = ok2 & target.valid[idx2]
+    with tracing.span(".ransac", round=2):
+        res2 = _ransac(generator, src_pts, dst2, ok2, num_hypotheses, None if draws is None else draws.round2)
+    with tracing.span(".select"):
+        if rematch_below is not None:
+            # the JAX package's cond: below the gate round 2 runs, else it is round 1
+            run2 = res1.num_inliers < rematch_below
+            res2 = ransac.RansacResult(*(torch.where(run2, a, b) for a, b in zip(res2, res1)))
+            dst2 = torch.where(run2, dst2, dst_pts)
+            idx2 = torch.where(run2, idx2, idx)
 
-    use2 = res2.num_inliers >= res1.num_inliers
-    nin = torch.where(use2, res2.num_inliers, res1.num_inliers)
-    return SparseTrackingResult(
-        torch.where(use2, res2.T, res1.T), nin, torch.where(use2, res2.rmse, res1.rmse),
-        nin >= MIN_INLIERS, src_pts, torch.where(use2, dst2, dst_pts),
-        torch.where(use2, res2.inliers, res1.inliers), torch.where(use2, idx2, idx),
-    )
+        use2 = res2.num_inliers >= res1.num_inliers
+        nin = torch.where(use2, res2.num_inliers, res1.num_inliers)
+        return SparseTrackingResult(
+            torch.where(use2, res2.T, res1.T), nin, torch.where(use2, res2.rmse, res1.rmse),
+            nin >= MIN_INLIERS, src_pts, torch.where(use2, dst2, dst_pts),
+            torch.where(use2, res2.inliers, res1.inliers), torch.where(use2, idx2, idx),
+        )
 
 
 def sparse_tracking(
@@ -204,11 +212,12 @@ def _track_summary_inner(
     """`_match_and_estimate` and its summary, with the reference's average
     pixel disparity over the inlier matches (ref: Correspondence.h:22-40)."""
     res = _match_and_estimate(generator, source, target, camera, num_hypotheses, rematch_below, draws)
-    uv_dst, _ = camera.project(res.corr_dst)
-    d = torch.linalg.norm(uv_dst - source.kp.uv, dim=-1)
-    vf = res.corr_valid.to(torch.float32)
-    disp = torch.sum(d * vf) / torch.clamp(torch.sum(vf), min=1.0)
-    return res, TrackingSummary(res.T_ts, res.success, res.rmse, res.num_inliers, disp)
+    with tracing.span(".summary"):
+        uv_dst, _ = camera.project(res.corr_dst)
+        d = torch.linalg.norm(uv_dst - source.kp.uv, dim=-1)
+        vf = res.corr_valid.to(torch.float32)
+        disp = torch.sum(d * vf) / torch.clamp(torch.sum(vf), min=1.0)
+        return res, TrackingSummary(res.T_ts, res.success, res.rmse, res.num_inliers, disp)
 
 
 def sparse_tracking_with_summary(

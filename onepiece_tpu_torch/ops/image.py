@@ -13,6 +13,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import tracing
+
 
 def _conv2d_same(img: torch.Tensor, kernel) -> torch.Tensor:
     """Single-channel 2D correlation with edge replication, (H, W) x (kh, kw)."""
@@ -109,14 +111,15 @@ def bilateral_filter(
     valid_c = depth > 0
     inv2v = 1.0 / (2 * sigma_value**2)
     for dy in range(-r, r + 1):
-        for dx in range(-r, r + 1):
-            shifted = padded[r + dy : r + dy + h, r + dx : r + dx + w]
-            ok = (shifted > 0) & valid_c
-            ws = math.exp(-(dx * dx + dy * dy) / (2 * sigma_space**2))
-            wv = torch.exp(-((shifted - depth) ** 2) * inv2v)
-            w_ = torch.where(ok, ws * wv, 0.0)
-            acc = acc + w_ * shifted
-            wacc = wacc + w_
+        with tracing.span(".taps", dy=dy):  # a row of the window, of the caller's layer
+            for dx in range(-r, r + 1):
+                shifted = padded[r + dy : r + dy + h, r + dx : r + dx + w]
+                ok = (shifted > 0) & valid_c
+                ws = math.exp(-(dx * dx + dy * dy) / (2 * sigma_space**2))
+                wv = torch.exp(-((shifted - depth) ** 2) * inv2v)
+                w_ = torch.where(ok, ws * wv, 0.0)
+                acc = acc + w_ * shifted
+                wacc = wacc + w_
     out = torch.where(wacc > 1e-8, acc / torch.clamp(wacc, min=1e-8), depth)
     return torch.where(valid_c, out, 0.0)
 

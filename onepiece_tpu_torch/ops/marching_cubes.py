@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils import tracing
 from .mc_tables import CORNER_POS, EDGE_CORNERS, MAX_TRIS_PER_VOXEL, TRI_COUNTS, TRI_TABLE
 from .tsdf import CUBE_SIZE, EMPTY_SDF
 
@@ -214,7 +215,8 @@ def _extract_triangles_cuda(vox, slots, nbr_slots, block_coords, voxel_size, iso
                        counts.data_ptr(), listed.data_ptr(), stream)
     _build.check(err, _build.MARCHING_CUBES)
     ends = torch.cumsum(counts, 0, dtype=torch.int32)  # block b writes rows [ends[b-1], ends[b])
-    total, n_listed = torch.stack([ends[-1], listed[b]]).tolist()  # the one host read: the output's size
+    with tracing.sync("mc_size"):
+        total, n_listed = torch.stack([ends[-1], listed[b]]).tolist()  # the one host read: the output's size
     verts = torch.empty((total, 3, 3), dtype=torch.float32, device=dev)
     colors = torch.empty((total, 3, 3), dtype=torch.float32, device=dev)
     if n_listed:

@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import tracing
+
 
 def dedup_triangle_soup(
     tri_verts: torch.Tensor,  # (T, 3, 3)
@@ -28,6 +30,11 @@ def dedup_triangle_soup(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
     """Merge identical (quantised) vertices -> (vertices (V, 3), faces (F, 3)
     int64, colors (V, 3) or None), on the soup's device."""
+    with tracing.span("meshing.dedup"):
+        return _dedup(tri_verts, tri_colors, quantum)
+
+
+def _dedup(tri_verts, tri_colors, quantum):
     flat = tri_verts.reshape(-1, 3)
     n = flat.shape[0]
     dev = flat.device
@@ -43,8 +50,11 @@ def dedup_triangle_soup(
     start[1:] = (sorted_keys[1:] != sorted_keys[:-1]).any(1)
     inv = torch.empty(n, dtype=torch.int64, device=dev)
     inv[order] = torch.cumsum(start, 0) - 1
-    first = order[start]
+    with tracing.sync("dedup_vertices"):
+        first = order[start]
     faces = inv.reshape(-1, 3)
     ok = (faces[:, 0] != faces[:, 1]) & (faces[:, 1] != faces[:, 2]) & (faces[:, 0] != faces[:, 2])
     cols = None if tri_colors is None else tri_colors.reshape(-1, 3)[first]
-    return flat[first], faces[ok], cols
+    with tracing.sync("dedup_faces"):
+        faces = faces[ok]
+    return flat[first], faces, cols

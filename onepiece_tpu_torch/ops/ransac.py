@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..geometry import transforms
+from ..utils import tracing
 
 RANSAPC_ANCHORS = 8  # anchors a correspondence is checked against
 RANSAPC_MIN_VOTES = 5  # consistent anchors a correspondence needs
@@ -61,39 +62,43 @@ def ransac_rigid(
 
     With `norm_z` (per-correspondence depths) the gate is the reference's
     depth-normalised error ||T p - q|| / z <= threshold, and the rmse is
-    reported in the same normalised units."""
-    if samples is None:
-        samples = sample_indices(generator, valid, num_hypotheses, sample_size)
-    if norm_z is None:
-        # squared in float32, as the JAX package squares its traced threshold
-        thr2 = float(np.float32(threshold) * np.float32(threshold))
-    else:
-        thr2 = torch.square(threshold * norm_z)
-    Ts = transforms.kabsch_fast(src[samples], dst[samples])  # (H, 4, 4)
-    pred = torch.einsum("hij,nj->hni", Ts[:, :3, :3], src) + Ts[:, None, :3, 3]
-    d2 = torch.sum((pred - dst[None]) ** 2, dim=-1)  # (H, N)
-    inl = (d2 < thr2) & valid[None, :]
-    counts = torch.sum(inl, dim=-1)
-    best = torch.argmax(counts).reshape(1)
+    reported in the same normalised units. Its stages are spans of the
+    caller's layer: `.hypotheses`, `.score`, `.refit`."""
+    with tracing.span(".hypotheses"):
+        if samples is None:
+            samples = sample_indices(generator, valid, num_hypotheses, sample_size)
+        Ts = transforms.kabsch_fast(src[samples], dst[samples])  # (H, 4, 4)
+    with tracing.span(".score"):
+        if norm_z is None:
+            # squared in float32, as the JAX package squares its traced threshold
+            thr2 = float(np.float32(threshold) * np.float32(threshold))
+        else:
+            thr2 = torch.square(threshold * norm_z)
+        pred = torch.einsum("hij,nj->hni", Ts[:, :3, :3], src) + Ts[:, None, :3, 3]
+        d2 = torch.sum((pred - dst[None]) ** 2, dim=-1)  # (H, N)
+        inl = (d2 < thr2) & valid[None, :]
+        counts = torch.sum(inl, dim=-1)
+        best = torch.argmax(counts).reshape(1)
 
     def at_best(t):  # t[best] by index_select: indexing with a device scalar would read it on the host
         return t.index_select(0, best)[0]
 
-    best_inl = at_best(inl)
-    T_refit = transforms.kabsch(src, dst, best_inl.to(torch.float32))
-    d2_r = torch.sum((src @ T_refit[:3, :3].T + T_refit[:3, 3] - dst) ** 2, dim=-1)
-    inl_r = (d2_r < thr2) & valid
-    better = torch.sum(inl_r) >= at_best(counts)
-    T_out = torch.where(better, T_refit, at_best(Ts))
-    inl_out = torch.where(better, inl_r, best_inl)
-    nin = torch.sum(inl_out)
-    d2_out = torch.where(better, d2_r, at_best(d2))
-    if norm_z is not None:
-        d2_out = d2_out / torch.clamp(torch.square(norm_z), min=1e-6)
-    rmse = torch.sqrt(
-        torch.sum(torch.where(inl_out, d2_out, 0.0)) / torch.clamp(nin.to(torch.float32), min=1.0)
-    )
-    return RansacResult(T_out, inl_out, nin, rmse)
+    with tracing.span(".refit"):
+        best_inl = at_best(inl)
+        T_refit = transforms.kabsch(src, dst, best_inl.to(torch.float32))
+        d2_r = torch.sum((src @ T_refit[:3, :3].T + T_refit[:3, 3] - dst) ** 2, dim=-1)
+        inl_r = (d2_r < thr2) & valid
+        better = torch.sum(inl_r) >= at_best(counts)
+        T_out = torch.where(better, T_refit, at_best(Ts))
+        inl_out = torch.where(better, inl_r, best_inl)
+        nin = torch.sum(inl_out)
+        d2_out = torch.where(better, d2_r, at_best(d2))
+        if norm_z is not None:
+            d2_out = d2_out / torch.clamp(torch.square(norm_z), min=1e-6)
+        rmse = torch.sqrt(
+            torch.sum(torch.where(inl_out, d2_out, 0.0)) / torch.clamp(nin.to(torch.float32), min=1.0)
+        )
+        return RansacResult(T_out, inl_out, nin, rmse)
 
 
 def ransapc_filter(

@@ -32,6 +32,7 @@ import torch
 
 from ..geometry import se3
 from ..ops import ba_schur
+from ..utils import tracing
 
 DEFAULT_MAX_ITERS = 20  # ref: BundleAdjustment.cpp LM outer iterations
 
@@ -156,7 +157,13 @@ def optimize_device(
     pose1 baseline length. With `pc_obs` (O, 3) the RGB-D model runs
     (scale is observable; `anchor_scale` should be False). The observation
     lists are sorted once, on the device. Returns (poses, points, mean
-    squared error)."""
+    squared error). Spans: `ba.lm`, its steps `ba.step` (the trial's cost
+    and the decision `ba.accept`) and the final cost `ba.cost`."""
+    with tracing.span("ba.lm", iters=max_iters):
+        return _lm(poses, points, obs, solve_frame, fx, fy, cx, cy, max_iters, lam0, anchor_scale, pc_obs)
+
+
+def _lm(poses, points, obs, solve_frame, fx, fy, cx, cy, max_iters, lam0, anchor_scale, pc_obs):
     F, P = poses.shape[0], points.shape[0]
     intr = (fx, fy, cx, cy)
     lists = ba_schur.build_lists(obs.frame, obs.point, obs.valid, F, P) if poses.is_cuda else None
@@ -169,27 +176,30 @@ def optimize_device(
     baseline0 = torch.linalg.vector_norm(_center(poses[1]) - c0)
     cost, _ = cost_of(poses, points)
     lam = torch.full((), lam0, dtype=torch.float32, device=poses.device)
-    for _ in range(max_iters):
-        np_, npt, ok = _ba_step_masked(poses, points, obs, solve_frame, lam, fx, fy, cx, cy, pc_obs, lists)
-        new_cost, _ = cost_of(np_, npt)
-        accept = ok & torch.isfinite(new_cost) & (new_cost < cost)
-        poses = torch.where(accept, np_, poses)
-        points = torch.where(accept, npt, points)
-        lam = torch.where(accept, torch.clamp(lam * 0.7, min=1e-9), torch.clamp(lam * 2.0, max=1e6))
-        cost = torch.where(accept, new_cost, cost)
+    for it in range(max_iters):
+        with tracing.span("ba.step", it=it):
+            np_, npt, ok = _ba_step_masked(poses, points, obs, solve_frame, lam, fx, fy, cx, cy, pc_obs, lists)
+            with tracing.span("ba.accept"):
+                new_cost, _ = cost_of(np_, npt)
+                accept = ok & torch.isfinite(new_cost) & (new_cost < cost)
+                poses = torch.where(accept, np_, poses)
+                points = torch.where(accept, npt, points)
+                lam = torch.where(accept, torch.clamp(lam * 0.7, min=1e-9), torch.clamp(lam * 2.0, max=1e6))
+                cost = torch.where(accept, new_cost, cost)
 
-    if anchor_scale:
-        baseline1 = torch.linalg.vector_norm(_center(poses[1]) - c0)
-        s = torch.where((baseline0 > 1e-9) & (baseline1 > 1e-9), baseline0 / baseline1, 1.0)
-        R = poses[:, :3, :3]
-        centers = -torch.einsum("fji,fj->fi", R, poses[:, :3, 3])
-        new_t = -torch.einsum("fij,fj->fi", R, c0[None] + s * (centers - c0[None]))
-        poses = torch.cat([torch.cat([R, new_t[..., None]], -1), poses[:, 3:]], 1)
-        points = c0[None] + s * (points - c0[None])
-        cost, _ = cost_of(poses, points)
+    with tracing.span("ba.cost"):
+        if anchor_scale:
+            baseline1 = torch.linalg.vector_norm(_center(poses[1]) - c0)
+            s = torch.where((baseline0 > 1e-9) & (baseline1 > 1e-9), baseline0 / baseline1, 1.0)
+            R = poses[:, :3, :3]
+            centers = -torch.einsum("fji,fj->fi", R, poses[:, :3, 3])
+            new_t = -torch.einsum("fij,fj->fi", R, c0[None] + s * (centers - c0[None]))
+            poses = torch.cat([torch.cat([R, new_t[..., None]], -1), poses[:, 3:]], 1)
+            points = c0[None] + s * (points - c0[None])
+            cost, _ = cost_of(poses, points)
 
-    _, wsum = cost_of(poses, points)
-    return poses, points, cost / torch.clamp(wsum, min=1.0)
+        _, wsum = cost_of(poses, points)
+        return poses, points, cost / torch.clamp(wsum, min=1.0)
 
 
 def optimize(

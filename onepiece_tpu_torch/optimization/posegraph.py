@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..geometry import se3
+from ..utils import tracing
 
 DEFAULT_ITERS = 5
 DAMPING = 1e-6  # added to the diagonal of the reduced system
@@ -94,8 +95,10 @@ def _solve(poses: torch.Tensor, H: torch.Tensor, b: torch.Tensor) -> torch.Tenso
 
 
 def _gn_step(poses: torch.Tensor, edges: PoseGraphEdges):
-    H, b, cost = _assemble(poses, edges)
-    return _solve(poses, H, b), cost
+    with tracing.span(".assemble"):
+        H, b, cost = _assemble(poses, edges)
+    with tracing.span(".solve"):
+        return _solve(poses, H, b), cost
 
 
 def optimize_pose_graph(

@@ -38,6 +38,7 @@ import torch
 
 from ..geometry import se3
 from ..optimization import bundle
+from ..utils import tracing
 from . import fused_sparse as fs
 
 
@@ -154,43 +155,46 @@ def _link_edge(e: torch.Tensor, ts: TrackState, edges: fs.EdgeStore, kf_uv: torc
 
     # observations: the source block (tracks born here), then the
     # destination block (first sighting in dst), written together
-    add_src = fits_p
-    add_dst = v & (t_dst < 0) & (tid >= 0)
-    ps = ts.n_obs + torch.cumsum(add_src.to(torch.int64), 0) - 1
-    fits_s = add_src & (ps < o_cap)
-    n_src = torch.sum(fits_s.to(torch.int64))
-    pd = ts.n_obs + n_src + torch.cumsum(add_dst.to(torch.int64), 0) - 1
-    fits_d = add_dst & (pd < o_cap)
-    n_dst = torch.sum(fits_d.to(torch.int64))
-    route = _route(torch.cat([ps, pd]), torch.cat([fits_s, fits_d]))
-    uv = kf_uv.index_select(0, sd)
-    _put_rows(ts.obs_frame, route, sd[:, None].expand(2, c).reshape(2 * c))
-    _put_rows(ts.obs_point, route, tid.repeat(2))
-    _put_rows(ts.obs_uv, route, torch.cat([uv[0].index_select(0, i), uv[1].index_select(0, j)]))
-    _put_rows(ts.obs_pc, route, torch.cat([p_src, row(edges.p_dst, e)]))
-    obs_drop = torch.sum(((add_src & ~fits_s) | (add_dst & ~fits_d)).to(torch.int64))
+    with tracing.span("ba.observations"):
+        add_src = fits_p
+        add_dst = v & (t_dst < 0) & (tid >= 0)
+        ps = ts.n_obs + torch.cumsum(add_src.to(torch.int64), 0) - 1
+        fits_s = add_src & (ps < o_cap)
+        n_src = torch.sum(fits_s.to(torch.int64))
+        pd = ts.n_obs + n_src + torch.cumsum(add_dst.to(torch.int64), 0) - 1
+        fits_d = add_dst & (pd < o_cap)
+        n_dst = torch.sum(fits_d.to(torch.int64))
+        route = _route(torch.cat([ps, pd]), torch.cat([fits_s, fits_d]))
+        uv = kf_uv.index_select(0, sd)
+        _put_rows(ts.obs_frame, route, sd[:, None].expand(2, c).reshape(2 * c))
+        _put_rows(ts.obs_point, route, tid.repeat(2))
+        _put_rows(ts.obs_uv, route, torch.cat([uv[0].index_select(0, i), uv[1].index_select(0, j)]))
+        _put_rows(ts.obs_pc, route, torch.cat([p_src, row(edges.p_dst, e)]))
+        obs_drop = torch.sum(((add_src & ~fits_s) | (add_dst & ~fits_d)).to(torch.int64))
 
-    # the ids go back into both keyframes' rows of the map (source row, then
-    # destination row)
-    tracks = _last_wins(tracks.reshape(-1), torch.cat([i, j + n_kp]),
-                        torch.cat([t_src < 0, t_dst < 0]) & (v & (tid >= 0)).repeat(2), tid.repeat(2))
-    ts.track_of_kp.index_copy_(0, sd[:1], tracks[None, :n_kp])
-    ts.track_of_kp.index_copy_(0, sd[1:], tracks[None, n_kp:])
+        # the ids go back into both keyframes' rows of the map (source row, then
+        # destination row)
+        tracks = _last_wins(tracks.reshape(-1), torch.cat([i, j + n_kp]),
+                            torch.cat([t_src < 0, t_dst < 0]) & (v & (tid >= 0)).repeat(2), tid.repeat(2))
+        ts.track_of_kp.index_copy_(0, sd[:1], tracks[None, :n_kp])
+        ts.track_of_kp.index_copy_(0, sd[1:], tracks[None, n_kp:])
 
-    return ts._replace(
-        n_pts=ts.n_pts + n_new, n_obs=ts.n_obs + n_src + n_dst,
-        pt_overflow=ts.pt_overflow + pt_drop, obs_overflow=ts.obs_overflow + obs_drop,
-    )
+        return ts._replace(
+            n_pts=ts.n_pts + n_new, n_obs=ts.n_obs + n_src + n_dst,
+            pt_overflow=ts.pt_overflow + pt_drop, obs_overflow=ts.obs_overflow + obs_drop,
+        )
 
 
 def link_edges(ts: TrackState, edges: fs.EdgeStore, kf_uv: torch.Tensor, bound: int) -> TrackState:
     """Link the edges `linked_edges` .. `edges.num` - 1 (at most `bound` of
     them: the host's bound on the edges appended since the last call)."""
     e_cap = edges.src.shape[0]
-    for k in range(bound):
-        e = ts.linked_edges + k
-        ts = _link_edge(torch.clamp(e, max=e_cap - 1), ts, edges, kf_uv, active=e < edges.num)
-    return ts._replace(linked_edges=edges.num.clone())
+    with tracing.span("ba.link", bound=bound):
+        for k in range(bound):
+            with tracing.span("ba.edge"):
+                e = ts.linked_edges + k
+                ts = _link_edge(torch.clamp(e, max=e_cap - 1), ts, edges, kf_uv, active=e < edges.num)
+        return ts._replace(linked_edges=edges.num.clone())
 
 
 def _link_and_ba_body(
@@ -213,31 +217,33 @@ def _link_and_ba_body(
     o_cap = ts.obs_frame.shape[0]
     dev = kf_pose.device
 
-    T_cw = se3.inverse_T(kf_pose)
-    obs_valid = torch.arange(o_cap, device=dev) < ts.n_obs
-    obs = bundle.BAObservations(ts.obs_frame, ts.obs_point, ts.obs_uv, obs_valid,
-                                torch.zeros((1, 1), dtype=torch.int64, device=dev))
-    fidx = torch.arange(n_cap, device=dev)
-    has_obs = torch.zeros((n_cap,), dtype=torch.int64, device=dev).index_add_(0, ts.obs_frame,
-                                                                               obs_valid.to(torch.int64))
-    solve_frame = (fidx > 0) & (fidx < num_kf) & (has_obs > 0)
-    run = (num_kf >= 2) & (ts.n_pts >= 8) & (ts.n_obs >= 24)
+    with tracing.span("ba.compose"):
+        T_cw = se3.inverse_T(kf_pose)
+        obs_valid = torch.arange(o_cap, device=dev) < ts.n_obs
+        obs = bundle.BAObservations(ts.obs_frame, ts.obs_point, ts.obs_uv, obs_valid,
+                                    torch.zeros((1, 1), dtype=torch.int64, device=dev))
+        fidx = torch.arange(n_cap, device=dev)
+        has_obs = torch.zeros((n_cap,), dtype=torch.int64, device=dev).index_add_(0, ts.obs_frame,
+                                                                                   obs_valid.to(torch.int64))
+        solve_frame = (fidx > 0) & (fidx < num_kf) & (has_obs > 0)
+        run = (num_kf >= 2) & (ts.n_pts >= 8) & (ts.n_obs >= 24)
 
-    # world positions composed from the anchored storage at the current
-    # (post-warm-start) keyframe poses
-    Ta = kf_pose[ts.pt_anchor]
-    world = torch.einsum("pij,pj->pi", Ta[:, :3, :3], ts.pt_local) + Ta[:, :3, 3]
+        # world positions composed from the anchored storage at the current
+        # (post-warm-start) keyframe poses
+        Ta = kf_pose[ts.pt_anchor]
+        world = torch.einsum("pij,pj->pi", Ta[:, :3, :3], ts.pt_local) + Ta[:, :3, 3]
     T_ba, world_ba, mse = bundle.optimize_device(
         T_cw, world, obs, solve_frame, fx, fy, cx, cy, max_iters=ba_iters, lam0=ba_lam0,
         anchor_scale=residual == "2d", pc_obs=ts.obs_pc if residual == "3d" else None)
-    T_cw = torch.where(run, T_ba, T_cw)
-    world = torch.where(run, world_ba, world)
-    mse = torch.where(run, mse, 0.0)
-    kf_pose_new = se3.inverse_T(T_cw)
-    # decompose back to the anchored storage against the refined poses
-    Tna = T_cw[ts.pt_anchor]
-    ts = ts._replace(pt_local=torch.einsum("pij,pj->pi", Tna[:, :3, :3], world) + Tna[:, :3, 3])
-    return ts, BAChunkOut(kf_pose_new, ts.n_pts, ts.n_obs, ts.pt_overflow, ts.obs_overflow, mse)
+    with tracing.span("ba.decompose"):
+        T_cw = torch.where(run, T_ba, T_cw)
+        world = torch.where(run, world_ba, world)
+        mse = torch.where(run, mse, 0.0)
+        kf_pose_new = se3.inverse_T(T_cw)
+        # decompose back to the anchored storage against the refined poses
+        Tna = T_cw[ts.pt_anchor]
+        ts = ts._replace(pt_local=torch.einsum("pij,pj->pi", Tna[:, :3, :3], world) + Tna[:, :3, 3])
+        return ts, BAChunkOut(kf_pose_new, ts.n_pts, ts.n_obs, ts.pt_overflow, ts.obs_overflow, mse)
 
 
 @dataclasses.dataclass

@@ -33,6 +33,7 @@ from ..odometry import dense
 from ..ops import tsdf as tsdf_ops
 from ..ops import tsdf_slots
 from ..ops.image import bilateral_filter
+from ..utils import tracing
 
 MAX_WEIGHT = 100.0
 # frame 0's bulk insert into an empty table sees real claim contention; in
@@ -56,6 +57,12 @@ class FrameOut(NamedTuple):
     keys_saturated: torch.Tensor  # () bool: the touched-key buffer hit kmax
 
 
+def _filtered(depth):
+    """The pre-fusion bilateral filter of a depth image."""
+    with tracing.span("integration.bilateral"):
+        return bilateral_filter(depth)
+
+
 def _integrate(
     vox, table, depth_f, gray, rgb, T_w, camera, voxel_size, truncation, kmax, stride,
     claim_rounds,
@@ -63,24 +70,27 @@ def _integrate(
     """Allocate the frame's touched blocks and fuse the frame into the pool
     (in place), colour from `rgb` (H, W, 3) or, if it is None, from gray.
     Returns (table, keys_saturated)."""
-    keys = tsdf_ops.touched_block_keys(
-        depth_f, T_w, camera.fx, camera.fy, camera.cx, camera.cy,
-        voxel_size, truncation, max_blocks=kmax, stride=stride,
-    )
-    # keys are sorted with INVALID_KEY (the largest) as padding: a real key
-    # in the last entry means the buffer filled and keys may have been
-    # dropped (they retry on later frames) — surfaced, not silent
-    saturated = keys[-1] != tsdf_ops.INVALID_KEY
-    table, slots = dh.insert(table, keys, claim_rounds=claim_rounds)
-    trash = vox.shape[0] - 1
-    slots = torch.where(slots < 0, trash, slots).to(torch.int32)
-    T_cw = se3.inverse_T(T_w)
-    # the kernel's channels-first image: [depth, gray] or [depth, r, g, b]
-    img = torch.stack([depth_f, gray]) if rgb is None else torch.cat([depth_f[None], rgb.permute(2, 0, 1)])
-    tsdf_slots.integrate_slots(
-        vox, keys, slots, img, T_cw,
-        camera.fx, camera.fy, camera.cx, camera.cy, voxel_size, truncation, MAX_WEIGHT,
-    )
+    with tracing.span("integration.keys"):
+        keys = tsdf_ops.touched_block_keys(
+            depth_f, T_w, camera.fx, camera.fy, camera.cx, camera.cy,
+            voxel_size, truncation, max_blocks=kmax, stride=stride,
+        )
+        # keys are sorted with INVALID_KEY (the largest) as padding: a real key
+        # in the last entry means the buffer filled and keys may have been
+        # dropped (they retry on later frames) — surfaced, not silent
+        saturated = keys[-1] != tsdf_ops.INVALID_KEY
+    with tracing.span("integration.insert"):
+        table, slots = dh.insert(table, keys, claim_rounds=claim_rounds)
+    with tracing.span("integration.fuse"):
+        trash = vox.shape[0] - 1
+        slots = torch.where(slots < 0, trash, slots).to(torch.int32)
+        T_cw = se3.inverse_T(T_w)
+        # the kernel's channels-first image: [depth, gray] or [depth, r, g, b]
+        img = torch.stack([depth_f, gray]) if rgb is None else torch.cat([depth_f[None], rgb.permute(2, 0, 1)])
+        tsdf_slots.integrate_slots(
+            vox, keys, slots, img, T_cw,
+            camera.fx, camera.fy, camera.cx, camera.cy, voxel_size, truncation, MAX_WEIGHT,
+        )
     return table, saturated
 
 
@@ -100,7 +110,7 @@ def _frame_body(
     res = dense.dense_tracking(state.pyr, pyr, camera, init_T=state.rel, iters=iters)
     T_w = dense.chain_pose(state.T_w, res.T_ts)
     table, saturated = _integrate(
-        state.vox, state.table, bilateral_filter(depth), gray, rgb, T_w, camera,
+        state.vox, state.table, _filtered(depth), gray, rgb, T_w, camera,
         voxel_size, truncation, kmax, stride, FRAME_CLAIM_ROUNDS,
     )
     return (
@@ -158,47 +168,50 @@ class FusedDenseFusion:
 
     def _init(self, gray: torch.Tensor, depth: torch.Tensor, rgb: torch.Tensor | None) -> None:
         """Frame 0: pyramids, fresh pool and table, fuse at identity."""
-        eye = torch.eye(4, dtype=torch.float32, device=self.device)
-        vox = tsdf_slots.make_pool(self.capacity, self.device)
-        table, _ = _integrate(
-            vox, dh.make_table(self.table_size, self.capacity, self.device),
-            bilateral_filter(depth), gray, rgb, eye, self.camera, self.voxel_size,
-            self.truncation, self.kmax, self.stride, INIT_CLAIM_ROUNDS,
-        )
-        pyr = dense.preprocess_frame(gray, depth, self.camera)
-        self._state = FusedState(pyr, eye, eye, table, vox)
-        self._poses.append(eye)
-        self._rmses.append(torch.zeros((), dtype=torch.float32, device=self.device))
+        with tracing.span("loop.init"):
+            eye = torch.eye(4, dtype=torch.float32, device=self.device)
+            vox = tsdf_slots.make_pool(self.capacity, self.device)
+            table, _ = _integrate(
+                vox, dh.make_table(self.table_size, self.capacity, self.device),
+                _filtered(depth), gray, rgb, eye, self.camera, self.voxel_size,
+                self.truncation, self.kmax, self.stride, INIT_CLAIM_ROUNDS,
+            )
+            pyr = dense.preprocess_frame(gray, depth, self.camera)
+            self._state = FusedState(pyr, eye, eye, table, vox)
+            self._poses.append(eye)
+            self._rmses.append(torch.zeros((), dtype=torch.float32, device=self.device))
 
     def process_frame(self, gray, depth, rgb=None) -> None:
         """Track and fuse one (H, W) gray + depth frame (numpy or tensor).
 
         With an (H, W, 3) `rgb` the volume takes its colour from it; without,
         r = g = b = gray. Tracking reads gray only."""
-        gray = self._tensor(gray)
-        depth = self._tensor(depth)
-        if rgb is not None:
-            rgb = self._tensor(rgb)
-        self.frame_count += 1
-        if self._state is None:
-            self._init(gray, depth, rgb)
-            return
-        self._state, out = _frame_body(
-            self._state, gray, depth, rgb, self.camera, self.voxel_size, self.truncation,
-            self.kmax, self.stride, self.iters,
-        )
-        self._poses.append(out.T_w)
-        self._rmses.append(out.rmse)
-        self._sat.append(out.keys_saturated)
+        with tracing.span("loop.frame", frame=self.frame_count):
+            gray = self._tensor(gray)
+            depth = self._tensor(depth)
+            if rgb is not None:
+                rgb = self._tensor(rgb)
+            self.frame_count += 1
+            if self._state is None:
+                self._init(gray, depth, rgb)
+                return
+            self._state, out = _frame_body(
+                self._state, gray, depth, rgb, self.camera, self.voxel_size, self.truncation,
+                self.kmax, self.stride, self.iters,
+            )
+            self._poses.append(out.T_w)
+            self._rmses.append(out.rmse)
+            self._sat.append(out.keys_saturated)
 
     def process_chunk(self, grays, depths, rgbs=None) -> None:
         """Process a stack of K frames in order: grays and depths (K, H, W),
         rgbs optional (K, H, W, 3)."""
-        grays = self._tensor(grays)
-        depths = self._tensor(depths)
-        rgbs = [None] * len(grays) if rgbs is None else self._tensor(rgbs)
-        for g, d, c in zip(grays, depths, rgbs):
-            self.process_frame(g, d, c)
+        with tracing.span("loop.chunk", frames=len(grays)):
+            grays = self._tensor(grays)
+            depths = self._tensor(depths)
+            rgbs = [None] * len(grays) if rgbs is None else self._tensor(rgbs)
+            for g, d, c in zip(grays, depths, rgbs):
+                self.process_frame(g, d, c)
 
     def maybe_grow(self, threshold: float = 0.85) -> bool:
         """Double the pool (and, if needed, the hash table) when occupancy
@@ -208,15 +221,24 @@ class FusedDenseFusion:
         at double size with `insert_at` once its load factor would pass 1/2.
         Also doubles `kmax` when any frame since the last call saturated the
         touched-key buffer. Costs host syncs (the counters are read)."""
+        with tracing.span("grow.pool"):
+            grew = self._grow(threshold)
+            tracing.note(grew=grew)
+        return grew
+
+    def _grow(self, threshold: float) -> bool:
         if self._state is None:
             return False
         fresh = self._sat[self._sat_checked :]
         if fresh:
             self._sat_checked = len(self._sat)
-            if bool(torch.stack(fresh).any()):
+            with tracing.sync("grow_saturated"):
+                saturated = bool(torch.stack(fresh).any())
+            if saturated:
                 self.kmax *= 2
                 self.kmax_growth.append((self.frame_count, self.kmax))
-        na = int(self._state.table.num_active)
+        with tracing.sync("grow_occupancy"):
+            na = int(self._state.table.num_active)
         if na <= threshold * self.capacity:
             return False
         st = self._state
@@ -247,11 +269,12 @@ class FusedDenseFusion:
         return True
 
     def finalize(self) -> tuple[np.ndarray, np.ndarray]:
-        """One sync: fetch the trajectory (N, 4, 4) and per-frame rmse (N,)."""
-        return (
-            torch.stack(self._poses).cpu().numpy(),
-            torch.stack(self._rmses).cpu().numpy(),
-        )
+        """Two syncs: fetch the trajectory (N, 4, 4) and per-frame rmse (N,)."""
+        with tracing.span("meshing.finalize"), tracing.sync("finalize", 2):
+            return (
+                torch.stack(self._poses).cpu().numpy(),
+                torch.stack(self._rmses).cpu().numpy(),
+            )
 
     @property
     def num_active(self) -> int:
@@ -276,7 +299,11 @@ class FusedDenseFusion:
         st = self._state
         if st is None:
             raise RuntimeError("to_volume before any frame was processed")
-        na = int(st.table.num_active)
-        vol = TSDFVolume(self.voxel_size, self.truncation, max_weight=MAX_WEIGHT, vox=st.vox.clone())
-        vol.allocate(st.table.block_coords[:na].cpu().numpy())
+        with tracing.span("meshing.to_volume"):
+            with tracing.sync("volume_count"):
+                na = int(st.table.num_active)
+            vol = TSDFVolume(self.voxel_size, self.truncation, max_weight=MAX_WEIGHT, vox=st.vox.clone())
+            with tracing.sync("volume_coords"):
+                coords = st.table.block_coords[:na].cpu().numpy()
+            vol.allocate(coords)
         return vol

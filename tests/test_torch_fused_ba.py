@@ -29,7 +29,7 @@ from onepiece_tpu.systems import fused_sparse as jfs
 from onepiece_tpu_torch.io import trajectory as traj
 from onepiece_tpu_torch.systems import fused_ba as tfba
 from onepiece_tpu_torch.systems import fused_sparse as tfs
-from test_torch_fused_sparse import CAM, JCAM160, seq12  # noqa: F401  (the 12-frame orbit fixture)
+from test_torch_fused_sparse import CAM, JCAM160, seq12, two_chunks  # noqa: F401  (the 12-frame orbit fixture)
 
 SETTINGS = dict(max_keypoints=500, keyframe_disparity=10.0, pt_capacity=2048, obs_capacity=4096, ba_iters=6)
 
@@ -105,20 +105,19 @@ def test_link_edges_match_jax(p_cap, o_cap):
 @pytest.fixture(scope="module")
 def runs(seq12):  # noqa: F811
     """The JAX package's and the port's FusedBASlam runs over the same
-    frames, and the port's FusedFBASlam for its host reads."""
+    frames, and the port's FusedFBASlam, each port run with its sync counts."""
     grays, depths, _ = seq12
     jax_slam = jfba.FusedBASlam(JCAM160, **SETTINGS)
     port = tfba.FusedBASlam(CAM, device="cpu", **SETTINGS)
     fba = tfs.FusedFBASlam(CAM, device="cpu", max_keypoints=500, keyframe_disparity=10.0)
-    for s in (jax_slam, port, fba):
-        s.process_chunk(grays[:8], depths[:8])
-        s.process_chunk(grays[8:], depths[8:])
-    return jax_slam, port, fba
+    jax_slam.process_chunk(grays[:8], depths[:8])
+    jax_slam.process_chunk(grays[8:], depths[8:])
+    return jax_slam, (port, two_chunks(port, grays, depths)), (fba, two_chunks(fba, grays, depths))
 
 
 def test_fused_ba_slice_in_the_jax_regime(seq12, runs):  # noqa: F811
     _, _, poses = seq12
-    jax_slam, port, fba = runs
+    jax_slam, (port, port_syncs), (_, fba_syncs) = runs
     est = port.trajectory()
     assert est.shape == (12, 4, 4) and np.isfinite(est).all()
     ate_j = traj.ate_rmse(jax_slam.trajectory(), poses)
@@ -129,11 +128,13 @@ def test_fused_ba_slice_in_the_jax_regime(seq12, runs):  # noqa: F811
     assert port.pt_overflow == 0 and port.obs_overflow == 0 and port.edge_overflow == 0
     assert port.n_pts > 50 and port.n_obs > 2 * port.n_pts * 0.8, (port.n_pts, port.n_obs)
     # BA adds no host read to the front end's
-    assert port.host_reads == fba.host_reads, (port.host_reads, fba.host_reads)
+    reads = ("sync.ladder", "sync.promotions", "sync.lc_pairs", "sync.chunk_fetch")
+    assert [port_syncs.get(k) for k in reads] == [fba_syncs.get(k) for k in reads], (port_syncs, fba_syncs)
+    assert set(port_syncs) <= {*reads, "sync.kabsch_svd"}, port_syncs
 
 
 def test_fused_ba_track_store_invariants(runs):
-    _, port, _ = runs
+    _, (port, _), _ = runs
     ts = port._track_state
     n_obs, n_pts = int(ts.n_obs), int(ts.n_pts)
     assert 0 < n_pts <= port.pt_capacity and 0 < n_obs <= port.obs_capacity

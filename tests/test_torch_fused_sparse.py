@@ -20,7 +20,7 @@ from onepiece_tpu.systems.fused_sparse import FusedFBASlam as JaxFusedFBASlam
 from onepiece_tpu_torch.geometry.camera import TUM_CAMERA
 from onepiece_tpu_torch.io import trajectory as traj
 from onepiece_tpu_torch.systems.fused_sparse import FusedFBASlam
-from onepiece_tpu_torch.utils import synthetic
+from onepiece_tpu_torch.utils import synthetic, tracing
 
 CAM = TUM_CAMERA.pyramid(3)[2]  # 160x120
 JCAM160 = JCAM.next_pyramid_level().next_pyramid_level()
@@ -47,21 +47,32 @@ def seq12():
     return np.stack([o[1].numpy() for o in out]), np.stack([o[0].numpy() for o in out]), poses
 
 
+def two_chunks(slam, grays, depths) -> dict:
+    """Chunks of 8 and the rest, under a profiler: the program's `sync.*`
+    counts of the run, by site (the recorder counts while one records)."""
+    before = tracing.counters()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        slam.process_chunk(grays[:8], depths[:8])
+        slam.process_chunk(grays[8:], depths[8:])
+    return {k: n - before.get(k, 0) for k, n in tracing.counters().items()
+            if k.startswith("sync.") and n > before.get(k, 0)}
+
+
 @pytest.fixture(scope="module")
 def runs(seq12):
-    """The JAX package's and the port's runs over the same frames."""
+    """The JAX package's and the port's runs over the same frames, and the
+    port's sync counts."""
     grays, depths, _ = seq12
     jax_slam = JaxFusedFBASlam(JCAM160, **SETTINGS)
     port = FusedFBASlam(CAM, device="cpu", **SETTINGS)
-    for s in (jax_slam, port):
-        s.process_chunk(grays[:8], depths[:8])
-        s.process_chunk(grays[8:], depths[8:])
-    return jax_slam, port
+    jax_slam.process_chunk(grays[:8], depths[:8])
+    jax_slam.process_chunk(grays[8:], depths[8:])
+    return jax_slam, port, two_chunks(port, grays, depths)
 
 
 def test_fused_sparse_slice_in_the_jax_regime(seq12, runs):
     _, _, poses = seq12
-    jax_slam, port = runs
+    jax_slam, port, syncs = runs
     est = port.trajectory()
     assert est.shape == (12, 4, 4) and np.isfinite(est).all()
     ate_j = traj.ate_rmse(jax_slam.trajectory(), poses)
@@ -70,7 +81,9 @@ def test_fused_sparse_slice_in_the_jax_regime(seq12, runs):
     assert port.num_kf >= 3 and abs(port.num_kf - jax_slam.num_kf) <= 2, (port.num_kf, jax_slam.num_kf)
     assert port.edge_overflow == 0 and port.num_edges >= port.num_kf - 1
     # one ladder read per frame, and per chunk: the promotions, the LC pairs, the fetch
-    assert port.host_reads <= 12 + 2 * 3
+    reads = {k: syncs.get(k, 0) for k in ("sync.ladder", "sync.promotions", "sync.lc_pairs", "sync.chunk_fetch")}
+    assert reads["sync.ladder"] == 12 and reads["sync.promotions"] == reads["sync.chunk_fetch"] == 2
+    assert reads["sync.lc_pairs"] <= 2 and sum(reads.values()) <= 12 + 2 * 3
 
 
 def test_fused_sparse_capacity_grows(seq12):

@@ -13,9 +13,8 @@
   `dense.stencil_radii`) loads into the port with every other value, the
   port's JSON loads into the JAX package equal; unknown keys raise.
 - `PointCloud.from_rgbd` with rgb (and without) equals JAX's.
-- `utils/timer.py` and `utils/logging.py` keep the JAX contracts: means,
-  the `LogAll` lines, no wait on a CPU tensor; history, "ts" stamps, one
-  JSONL line a record, verbosity.
+- `utils/logging.py`'s `log` keeps the JAX contract: the component line
+  and the verbosity levels.
 - `io/openni.py`: `ReplayRGBDReader` delivers frames on its clock and ends
   with None (as `tests/test_misc.py` holds the JAX one); the live reader
   raises.
@@ -40,14 +39,13 @@ from onepiece_tpu.io import obj as jobj
 from onepiece_tpu.io import ref_tsdf as jref
 from onepiece_tpu.utils import config as jconfig
 from onepiece_tpu.utils import logging as jlogging
-from onepiece_tpu.utils import timer as jtimer
 from onepiece_tpu_torch.geometry import pointcloud as tpc
 from onepiece_tpu_torch.geometry.camera import TUM_CAMERA
 from onepiece_tpu_torch.integration import volume_ops
 from onepiece_tpu_torch.integration.blocks import TSDFVolume
 from onepiece_tpu_torch.io import obj, png, ref_tsdf
 from onepiece_tpu_torch.io.openni import LiveRGBDReader, ReplayRGBDReader
-from onepiece_tpu_torch.utils import config, logging, synthetic, timer
+from onepiece_tpu_torch.utils import config, logging, synthetic
 
 CAM80, JCAM80 = TUM_CAMERA.pyramid(4)[3], JCAM.pyramid(4)[3]
 
@@ -173,37 +171,8 @@ def test_from_rgbd_with_colour_matches_jax(with_rgb):
     np.testing.assert_allclose(ct.points.numpy()[v], np.asarray(cj.points)[v], atol=1e-5)
 
 
-def test_timer_contract(monkeypatch, capsys):
-    def no_wait(*_):
-        raise AssertionError("waited for a device on a CPU tensor")
-
-    monkeypatch.setattr(torch.cuda, "synchronize", no_wait)
-    ours, theirs = timer.Timer(), jtimer.Timer()
-    for t, value in ((ours, torch.ones(3)), (theirs, jnp.ones(3))):
-        for _ in range(2):
-            t.tick("stage")
-            time.sleep(0.002)
-            assert t.tock("stage", value) >= 2.0
-        t.tick("other")
-        t.tock("other")
-        assert t.mean_ms("stage") >= 2.0 and t.mean_ms("never") == 0.0
-    lines = [t.log_all().splitlines() for t in (ours, theirs)]
-    assert capsys.readouterr().out.count("[Timer]") == 4
-    for a, b in zip(*lines):  # the same lines but for the times
-        assert a.split(":")[0] == b.split(":")[0] and a.endswith("over 2") == b.endswith("over 2")
-    assert [line.split()[1] for line in lines[0]] == ["other:", "stage:"]
-
-
-def test_metrics_logger_and_log_contract(tmp_path, capsys, monkeypatch):
-    for mod, name in ((logging, "port.jsonl"), (jlogging, "jax.jsonl")):
-        m = mod.MetricsLogger(str(tmp_path / name))
-        m.record(frame=1, rmse=0.5)
-        m.record(frame=2, ts=7.0)
-        m.close()
-        m.close()
-        rows = [json.loads(x) for x in (tmp_path / name).read_text().splitlines()]
-        assert rows == m.history and rows[1] == {"frame": 2, "ts": 7.0} and rows[0]["ts"] > 1e9
-        assert mod.MetricsLogger().history == []
+def test_metrics_logger_and_log_contract(capsys, monkeypatch):
+    for mod in (logging, jlogging):
         for verbosity in (0, 1, 2):
             monkeypatch.setattr(mod, "VERBOSITY", verbosity)
             mod.log("Ring", "INFO", "started")
