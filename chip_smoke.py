@@ -29,8 +29,9 @@ Phases, in order; any failure exits non-zero before the final `ok` line:
      d2 bit-equal
   7. the DenseSlam slice again with the launch counts at 0: ATE, finite
      poses, icp_ok on every submap after the first, nn1 launches = 31 x ICP
-     calls, no TSDF launch; host syncs counted per frame, per submap and
-     inside each ICP call; ms per frame over 3 runs and ms per
+     calls, one RANSAC launch a global registration, no TSDF launch; host
+     syncs counted per frame, per submap and inside each ICP call and
+     global registration; ms per frame over 3 runs and ms per
      _finish_submap
   8. meshing: the marching-cubes kernel vs its plain version on the fused
      gray and rgb volumes of phase 5 (triangles bit-equal, in order), timed;
@@ -58,12 +59,22 @@ Phases, in order; any failure exits non-zero before the final `ok` line:
      bit-equal and its loop-closure candidates equal; each timed, with the
      launch floor (a one-element `fill_` in the same profiler session)
      beside it, and each failing if the profiler saw any other kernel
-     launched in its session (one kernel a call). Then,
+     launched in its session (one kernel a call). The rigid-RANSAC kernel
+     (`csrc/ransac_rigid.cu`) against its plain version on one draw, at the
+     tracker's shape (a call recorded from FusedFBASlam's warm orbit run:
+     1,000 correspondences, H 256, S 8, depth-normalised) and at global
+     registration's (5,000 seeded correspondences, H 4,096, S 4, the fixed
+     0.075 m gate): the best hypothesis bit-equal, the whole call's T
+     within 1e-5 and inliers equal; timed the same way, with its bound, beside the
+     plain version's ms and the whole call's. Then,
      launches counted and host syncs counted, `FusedFBASlam` (defaults) on
      the 16-frame orbit in one chunk (ATE <= 15 mm, no edge overflow; ms per
      frame over 5 runs after a warm run) and on the 100-frame
      `loop_trajectory` in chunks of 25 (ATE <= 30 mm, a loop-closure edge,
-     a capacity doubling, no edge overflow; ms per frame over 2 runs); and
+     a capacity doubling, no edge overflow; ms per frame over 2 runs), each
+     with the program's `sync.*` counters equal to the sync warnings, listed
+     by site, every rigid RANSAC on the RANSAC kernel (launches equal to the
+     `ransac.kernel` counter) and waiting only in its refit's SVD; and
      the FBAFusion mesh of the loop (every 8th frame at the optimised poses,
      voxel 0.02 m, truncation 0.1 m: TSDF and marching-cubes kernels, the
      dedup on the card bit-equal to numpy's, |scene SDF| median at the
@@ -313,6 +324,7 @@ FBA_STRIDE = 8
 MILD_G = 39  # keyframes in the loop's database when the MILD kernel is checked
 MILD_DB_ROWS = 128  # the loop's database capacity after its doublings
 ALL_VALID_SEED = 0  # the all-valid 1000 x 1000 hamming_match pair of random descriptors
+RANSAC_CLOUD_SEED = 4  # phase 9's global-registration cloud and both rigid-RANSAC draws
 BA_ITERS = 8  # FusedBASlam's LM iterations a chunk (its default)
 BA_LAM0 = 3e-5  # FusedBASlam's first LM damping (its default)
 # dampings the LM loop reaches after rejections (x2 each): the most
@@ -469,24 +481,34 @@ class SyncCounter:
 class ProgramSyncs:
     """The program's own count of its waits for the device inside the block:
     its `sync.*` counters (`onepiece_tpu_torch/utils/tracing.py`), which
-    count while a profiler records. Enter it outside a `SyncCounter`, so
-    that the profiler starts and stops outside the sync debug mode."""
+    count while a profiler records; `sites`, each counter's count inside the
+    block (the other counters, such as `ransac.kernel`, among them). Enter
+    it outside a `SyncCounter`, so that the profiler starts and stops
+    outside the sync debug mode."""
 
     def __enter__(self) -> "ProgramSyncs":
+        from onepiece_tpu_torch.utils import tracing
+
         self._prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
         self._prof.__enter__()
-        self._start = self._total()
+        self._start = tracing.counters()
         return self
 
     def __exit__(self, *exc):
-        self.count = self._total() - self._start
-        return self._prof.__exit__(*exc)
-
-    @staticmethod
-    def _total() -> int:
         from onepiece_tpu_torch.utils import tracing
 
-        return sum(n for name, n in tracing.counters().items() if name.startswith("sync."))
+        end = tracing.counters()
+        self.sites = {k: n - self._start.get(k, 0) for k, n in sorted(end.items()) if n != self._start.get(k, 0)}
+        self.count = sum(n for k, n in self.sites.items() if k.startswith("sync."))
+        return self._prof.__exit__(*exc)
+
+    def require_kernel_ransac(self, launches: int, what: str) -> None:
+        """Every rigid RANSAC of the block took the kernel (one launch and
+        one `ransac.kernel` count a call) and waited only in its refit's
+        library SVD (`sync.kabsch_svd`, two waits a call)."""
+        if not (launches == self.sites.get("ransac.kernel", 0) > 0
+                and self.sites.get("sync.kabsch_svd", 0) == 2 * launches):
+            raise AssertionError(f"{what}: ransac_rigid launches {launches}, counters {self.sites}")
 
 
 def recording_icp_inputs(point_to_point, out: list):
@@ -765,6 +787,96 @@ def mild_bytes_ops(q_desc, q_valid, db_desc, db_valid, g) -> tuple[int, int]:
     return n_bytes, 8 * n_q * n_f
 
 
+def ransac_bytes_ops(n: int, h: int, s: int, depths: bool) -> tuple[int, int]:
+    """What the rigid-RANSAC kernel must move and compute: src and dst (24
+    B), valid (1 B) and, depth-normalised, the depth (4 B) of each
+    correspondence and the (H, S) int64 samples read once; the best's T (64
+    B), count (8 B), inlier mask (1 B), d2 and gate (4 B each a
+    correspondence) written. Float operations, counted from
+    csrc/ransac_rigid.cu (a fused multiply-add counts 2): a hypothesis' fit
+    53 a sample (centroids 12; centred points 6, covariance 21, squared
+    norms 14) and 641 more (the centroids' and E0's sums 26, K 24, two 4x4
+    products 256, norm 33, scaling 16, 8 power products 224, normalising 13,
+    R 28, t 21); 28 to score a correspondence (R p + t and the difference
+    21, the square 5, the gate's test 1, its count 1; 2 more where depths
+    make the gate) under each hypothesis and under the best once more."""
+    gate = 2 if depths else 0
+    n_bytes = n * (24 + 1 + (4 if depths else 0)) + 8 * h * s + 64 + 8 + n * (1 + 4 + 4)
+    n_ops = h * (53 * s + 641) + (h + 1) * n * (28 + gate)
+    return n_bytes, n_ops
+
+
+def ransac_phase_line(dev, card, tracker: tuple) -> dict:
+    """The rigid-RANSAC kernel at the tracker's shape (a call recorded from
+    FusedFBASlam's: 1,000 correspondences, H 256, S 8, depth-normalised) and
+    at global registration's (H 4,096, S 4, the fixed 0.075 m gate, 5,000
+    correspondences of a seeded cloud, 30 % outliers): on one draw, the
+    kernel's best hypothesis against the plain version's (count equal, T
+    bit-equal) and the whole call against the plain route (T within 1e-5,
+    inliers equal); the kernel's device ms beside the launch floor, its
+    bound and share; by CUDA events, the plain version of the kernel's
+    stage, the whole call and the whole plain route."""
+    from onepiece_tpu_torch.geometry import se3, transforms
+    from onepiece_tpu_torch.ops import ransac
+
+    rng = np.random.default_rng(RANSAC_CLOUD_SEED)
+    src = rng.uniform([-2, -1.5, 0.5], [2, 1.5, 4.5], (5000, 3))
+    dst = src @ se3.so3_exp(torch.from_numpy(rng.normal(size=3) * 0.2)).numpy().T + rng.normal(size=3) * 0.3
+    dst += rng.normal(size=(5000, 3)) * 0.003
+    bad = rng.random(5000) < 0.3
+    dst[bad] += rng.normal(size=(int(bad.sum()), 3))
+    cloud = tuple(torch.tensor(x, dtype=torch.float32, device=dev) for x in (src, dst))
+    forms = {"tracker": (tracker, 256, 8),
+             "global registration": ((*cloud, torch.tensor(rng.random(5000) > 0.05, device=dev), 0.075, None),
+                                     4096, 4)}
+    out = {}
+    for form, ((p, q, valid, thr, z), h, s) in forms.items():
+        gen = torch.Generator(device=dev).manual_seed(RANSAC_CLOUD_SEED)
+        samples = ransac.sample_indices(gen, valid, h, s)
+
+        def kernel():
+            return ransac._best_cuda(p, q, valid, samples, thr, z)
+
+        def plain_stage():
+            return ransac._best(p, q, valid, thr, transforms.kabsch_fast(p[samples], q[samples]), z)
+
+        def call():
+            return ransac.ransac_rigid(None, p, q, valid, thr, h, s, samples=samples, norm_z=z)
+
+        def plain_call():
+            return ransac.ransac_rigid_reference(p, q, valid, thr, samples, z)
+
+        kb, _, hyp_count = kernel()
+        pb = plain_stage()
+        k, pl = call(), plain_call()
+        t_best, t_err = float((kb.T - pb.T).abs().max()), float((k.T - pl.T).abs().max())
+        if not (int(kb.count) == int(pb.count) and torch.equal(kb.T, pb.T) and t_err <= 1e-5
+                and torch.equal(k.inliers, pl.inliers) and int(k.num_inliers) > 0):
+            raise AssertionError(f"ransac_rigid {form}: best count {int(kb.count)} / {int(pb.count)}, its T within "
+                                 f"{t_best} (bit-equal required); T within {t_err} (<= 1e-5), inliers "
+                                 f"{int(k.num_inliers)} / {int(pl.num_inliers)}, masks equal "
+                                 f"{torch.equal(k.inliers, pl.inliers)}")
+        t = timed_beside_floor(kernel, "ransac_rigid_kernel")
+        require_one_kernel(t, f"ransac_rigid {form}")
+        event_ms = cuda_ms(kernel)
+        plain_ms = cuda_ms(plain_stage, reps=5)
+        call_ms, plain_call_ms = cuda_ms(call, reps=5), cuda_ms(plain_call, reps=5)
+        n_bytes, n_ops = ransac_bytes_ops(p.shape[0], h, s, z is not None)
+        b = bound(n_bytes, n_ops)
+        out[form] = dict(ms=t["ms"], event_ms=event_ms, plain_ms=plain_ms, call_ms=call_ms,
+                         plain_call_ms=plain_call_ms, floor_ms=t["floor_ms"], max_abs_err=t_err, **b)
+        print(f"ransac_rigid {form}: N {p.shape[0]} ({int(valid.sum())} valid), H {h}, S {s}, "
+              f"{'depth-normalised' if z is not None else f'fixed {thr} m'} gate: the kernel's best {int(hyp_count[h])} "
+              f"({int(kb.count)} inliers) and its T bit-equal to the plain version's; the whole call within "
+              f"{t_err:.3g} of the plain route (bit-equal {torch.equal(k.T, pl.T)}), inliers equal "
+              f"({int(k.num_inliers)}); kernel {t['ms']:.4f} ms on the "
+              f"device ({event_ms:.4f} ms by events; launch floor {t['floor_ms']} ms), bound {b['bound_ms']:.5f} ms "
+              f"({b['bound_by']}: {n_ops} operations, {n_bytes} B), roofline share {b['bound_ms'] / t['ms']:.4f}; "
+              f"plain version of the stage {plain_ms:.4f} ms; the whole call {call_ms:.4f} ms, plain route "
+              f"{plain_call_ms:.4f} ms (events) on {card}", flush=True)
+    return out
+
+
 def hamming_forms(cam, dev, poses, grays, depths) -> dict:
     """The `hamming_match` inputs phase 9 holds and times: the 1000
     descriptors of orbit frames 0 and 1 (the path's shape, most invalid),
@@ -832,7 +944,7 @@ def sparse_phase(cam, dev, scene, card, poses, grays, depths) -> dict:
     from onepiece_tpu_torch.io import trajectory as traj
     from onepiece_tpu_torch.io.ply import dedup_triangle_soup
     from onepiece_tpu_torch.lcdetection import mild
-    from onepiece_tpu_torch.ops import hamming
+    from onepiece_tpu_torch.ops import hamming, ransac
     from onepiece_tpu_torch.ops.image import bilateral_filter
     from onepiece_tpu_torch.ops.mesh_dedup import dedup_triangle_soup as dedup_on_device
     from onepiece_tpu_torch.systems.fused_sparse import FusedFBASlam
@@ -881,12 +993,26 @@ def sparse_phase(cam, dev, scene, card, poses, grays, depths) -> dict:
         torch.cuda.synchronize()
         return s, (time.perf_counter() - t) * 1e3 / len(grays)
 
-    run_orbit()  # warm
+    tracker_calls = []
+
+    def recording(fn):
+        def wrapped(generator, src, dst, valid, threshold, *a, norm_z=None, **kw):
+            if not tracker_calls:
+                tracker_calls.append((src.clone(), dst.clone(), valid.clone(), threshold, norm_z.clone()))
+            return fn(generator, src, dst, valid, threshold, *a, norm_z=norm_z, **kw)
+        return wrapped
+
+    with patched(ransac, "ransac_rigid", recording):
+        run_orbit()  # warm
+    # -- (a) the rigid-RANSAC kernel at the tracker's and global registration's shapes --
+    res_ransac = ransac_phase_line(dev, card, tracker_calls[0])
     launches = []
     _build.reset_launch_counts()
     with ProgramSyncs() as ps, SyncCounter() as sc:
         slam, _ = run_orbit()
-    launches.append(counted({**zero, "hamming": _build.HAMMING.launches}, "sparse orbit"))
+    launches.append(counted({**zero, "hamming": _build.HAMMING.launches,
+                             "ransac_rigid": _build.RANSAC_RIGID.launches}, "sparse orbit"))
+    ps.require_kernel_ransac(launches[-1]["ransac_rigid"], "FusedFBASlam orbit")
     syncs = orbit_syncs = sc.count
     ate = orbit_ate = traj.ate_rmse(slam.trajectory(), poses)
     orbit_program_syncs = ps.count
@@ -898,8 +1024,9 @@ def sparse_phase(cam, dev, scene, card, poses, grays, depths) -> dict:
     times = [run_orbit()[1] for _ in range(SPARSE_TIMED_RUNS)]
     print(f"FusedFBASlam 640x480 x {len(grays)} frames of the orbit, one chunk: ATE {ate * 1e3:.4f} mm, "
           f"{slam.num_kf} keyframes, {slam.num_edges} edges ({slam.lc_edges_total} LC), overflow "
-          f"{slam.edge_overflow}, hamming launches {launches[-1]['hamming']}; host syncs {syncs} "
-          f"({syncs / len(grays):.2f} per frame; {ps.count} counted at the program's sites); ms/frame "
+          f"{slam.edge_overflow}, hamming launches {launches[-1]['hamming']}, ransac_rigid "
+          f"{launches[-1]['ransac_rigid']}; host syncs {syncs} ({syncs / len(grays):.2f} per frame; {ps.count} "
+          f"counted at the program's sites {ps.sites}); ms/frame "
           f"over {SPARSE_TIMED_RUNS} runs after a warm run: median {np.median(times):.3f} "
           f"(runs {[round(t, 3) for t in times]}) on {card}", flush=True)
     orbit_ms = float(np.median(times))
@@ -925,20 +1052,24 @@ def sparse_phase(cam, dev, scene, card, poses, grays, depths) -> dict:
     _build.reset_launch_counts()
     with ProgramSyncs() as ps, SyncCounter() as sc:
         loop, _ = run_loop()
-    launches.append(counted({**zero, "hamming": _build.HAMMING.launches}, "sparse loop"))
+    launches.append(counted({**zero, "hamming": _build.HAMMING.launches,
+                             "ransac_rigid": _build.RANSAC_RIGID.launches}, "sparse loop"))
+    ps.require_kernel_ransac(launches[-1]["ransac_rigid"], "FusedFBASlam loop")
     syncs = sc.count
     est = loop.trajectory()
     ate = traj.ate_rmse(est, loop_gt)
     if not (np.isfinite(est).all() and ate <= MAX_LOOP_ATE_M and loop.lc_edges_total >= 1
-            and loop.capacity_doublings >= 1 and loop.edge_overflow == 0):
+            and loop.capacity_doublings >= 1 and loop.edge_overflow == 0 and ps.count == syncs):
         raise AssertionError(f"FusedFBASlam loop: ATE {ate} m (<= {MAX_LOOP_ATE_M}), LC edges "
-                             f"{loop.lc_edges_total}, doublings {loop.capacity_doublings}, overflow {loop.edge_overflow}")
+                             f"{loop.lc_edges_total}, doublings {loop.capacity_doublings}, overflow "
+                             f"{loop.edge_overflow}, host syncs {syncs}, counted by the program {ps.count}")
     times = [run_loop()[1] for _ in range(LOOP_TIMED_RUNS)]
     print(f"FusedFBASlam 640x480 x {LOOP_FRAMES} frames of loop_trajectory in chunks of {LOOP_CHUNK}: ATE "
           f"{ate * 1e3:.4f} mm, {loop.num_kf} keyframes, {loop.num_edges} edges ({loop.lc_edges_total} LC), "
           f"capacities {loop.kf_capacity} keyframes / {loop.edge_capacity} edges ({loop.capacity_doublings} "
-          f"doublings), overflow {loop.edge_overflow}, hamming launches {launches[-1]['hamming']}; host syncs "
-          f"{syncs} ({syncs / LOOP_FRAMES:.2f} per frame; {ps.count} counted at the program's sites); "
+          f"doublings), overflow {loop.edge_overflow}, hamming launches {launches[-1]['hamming']}, ransac_rigid "
+          f"{launches[-1]['ransac_rigid']}; host syncs {syncs} ({syncs / LOOP_FRAMES:.2f} per frame; {ps.count} "
+          f"counted at the program's sites {ps.sites}); "
           f"ms/frame over {LOOP_TIMED_RUNS} runs after a warm run: median {np.median(times):.3f} "
           f"(runs {[round(t, 3) for t in times]}) on {card}", flush=True)
     loop_ms = float(np.median(times))
@@ -1007,7 +1138,9 @@ def sparse_phase(cam, dev, scene, card, poses, grays, depths) -> dict:
           f"{len(faces)} faces (the dedup on the card bit-equal to numpy's) in {mesh_ms:.1f} ms; launches "
           f"{mesh_launches}; |scene sdf| at the vertices median {med * 1e3:.3f} mm, p90 {p90 * 1e3:.3f} mm",
           flush=True)
-    return dict(kernel=kernel, launches=launches, loop=(loop_gt, l_grays, l_depths),
+    tr, gr = res_ransac["tracker"], res_ransac["global registration"]
+    ransac_kernel = dict(tr, **{f"global_{k}": v for k, v in gr.items()}, global_share=gr["bound_ms"] / gr["ms"])
+    return dict(kernel=kernel, ransac_kernel=ransac_kernel, launches=launches, loop=(loop_gt, l_grays, l_depths),
                 orbit=dict(ate=orbit_ate, syncs=orbit_syncs, program_syncs=orbit_program_syncs, ms=orbit_ms),
                 loop_ms=loop_ms)
 
@@ -1188,7 +1321,9 @@ def ba_phase(cam, dev, card, poses, grays, depths, sparse: dict) -> dict:
     _build.reset_launch_counts()
     with ProgramSyncs() as ps, SyncCounter() as sc:
         slam, _ = run(grays, depths, len(grays))
-    launches.append(counted({**zero, "hamming": _build.HAMMING.launches, "ba_schur": 2 * BA_ITERS}, "BA orbit"))
+    launches.append(counted({**zero, "hamming": _build.HAMMING.launches, "ba_schur": 2 * BA_ITERS,
+                             "ransac_rigid": _build.RANSAC_RIGID.launches}, "BA orbit"))
+    ps.require_kernel_ransac(launches[-1]["ransac_rigid"], "FusedBASlam orbit")
     syncs = sc.count
     est = slam.trajectory()
     ate = traj.ate_rmse(est, poses)
@@ -1246,8 +1381,9 @@ def ba_phase(cam, dev, card, poses, grays, depths, sparse: dict) -> dict:
     _build.reset_launch_counts()
     with ProgramSyncs() as ps, SyncCounter() as sc:
         loop, _ = run(l_grays, l_depths, LOOP_CHUNK)
-    launches.append(counted({**zero, "hamming": _build.HAMMING.launches, "ba_schur": 2 * BA_ITERS * n_chunks},
-                            "BA loop"))
+    launches.append(counted({**zero, "hamming": _build.HAMMING.launches, "ba_schur": 2 * BA_ITERS * n_chunks,
+                             "ransac_rigid": _build.RANSAC_RIGID.launches}, "BA loop"))
+    ps.require_kernel_ransac(launches[-1]["ransac_rigid"], "FusedBASlam loop")
     syncs = sc.count
     est = loop.trajectory()
     ate = traj.ate_rmse(est, loop_gt)
@@ -1420,7 +1556,7 @@ def disk_phase(cam, dev, card, poses, grays, depths, root: str) -> dict:
         loop_syncs = sc.count
     out["disk_launches"] = counted(
         {"tsdf_integrate": N_FRAMES, "dense_normal_eq": sum(s.iters) * (N_FRAMES - 1), "nn1": 0,
-         "marching_cubes": 0, "hamming": 0, "ba_schur": 0}, "fused loop from disk")
+         "marching_cubes": 0, "hamming": 0, "ba_schur": 0, "ransac_rigid": 0}, "fused loop from disk")
     est, _ = s.finalize()
     ate = traj.ate_rmse(est, poses)
     if not (np.isfinite(est).all() and ate <= MAX_ATE_M and s.overflow == 0 and loop_syncs == 0):
@@ -1640,7 +1776,8 @@ def real_input_phase(cam, dev, card, slice_slams: dict, root: str) -> dict:
             s.process_chunk(g, d)
         loop_syncs = sc.count
     launches = counted({"tsdf_integrate": LOOP_DISK_FRAMES, "dense_normal_eq": sum(s.iters) * (LOOP_DISK_FRAMES - 1),
-                        "nn1": 0, "marching_cubes": 0, "hamming": 0, "ba_schur": 0}, "fused loop through the ring")
+                        "nn1": 0, "marching_cubes": 0, "hamming": 0, "ba_schur": 0, "ransac_rigid": 0},
+                       "fused loop through the ring")
     est, _ = s.finalize()
     ate = traj.ate_rmse(est, loop_gt)
     if not (np.isfinite(est).all() and ate <= MAX_LOOP_DENSE_ATE_M and s.overflow == 0 and loop_syncs == 0):
@@ -1991,7 +2128,8 @@ def host_loop_phase(cam, dev, card, poses, grays, depths, sparse: dict, root: st
             torch.cuda.synchronize()
             syncs = sc.count
         n = {k.name: k.launches for k in _build.KERNELS}
-        launches.append(counted({**zero, "hamming": n["hamming"], "ba_schur": n["ba_schur"]}, what))
+        launches.append(counted({**zero, "hamming": n["hamming"], "ba_schur": n["ba_schur"],
+                                 "ransac_rigid": n["ransac_rigid"]}, what))
         return res, syncs, launches[-1]
 
     # -- (a) FBASlam.update_frame on the 16-frame orbit, TUM_CAMERA defaults --
@@ -3113,7 +3251,7 @@ def main() -> int:
         slam, est, _ = run(forbid_syncs=True, colour=colour)
         launches = {k.name: k.launches for k in _build.KERNELS}
         expect = {"tsdf_integrate": N_FRAMES, "dense_normal_eq": sum(slam.iters) * (N_FRAMES - 1), "nn1": 0,
-                  "marching_cubes": 0, "hamming": 0, "ba_schur": 0}
+                  "marching_cubes": 0, "hamming": 0, "ba_schur": 0, "ransac_rigid": 0}
         if launches != expect:
             raise AssertionError(f"{form} slice: kernel launches on the main path {launches}, expected {expect}")
         slice_launches[form] = launches
@@ -3152,7 +3290,7 @@ def main() -> int:
 
     # ---- 6. DenseSlam warm run; nn1 vs plain at its ICP shapes ------------
     from onepiece_tpu_torch.ops import nn1 as nn1_ops
-    from onepiece_tpu_torch.registration import icp
+    from onepiece_tpu_torch.registration import global_reg, icp
 
     slam_gt = synthetic.loop_trajectory(SLAM_FRAMES)
     t0 = time.perf_counter()
@@ -3206,16 +3344,19 @@ def main() -> int:
     del cases, icp_inputs, big, ik, dk, ip, dp
 
     # ---- 7. the DenseSlam slice -------------------------------------------
-    icp_syncs, finish_syncs = [], []
+    icp_syncs, finish_syncs, reg_syncs = [], [], []
     _build.reset_launch_counts()
-    with SyncCounter() as sc, patched(icp, "point_to_point", lambda f: sc.counting(f, icp_syncs)):
+    with SyncCounter() as sc, patched(icp, "point_to_point", lambda f: sc.counting(f, icp_syncs)), \
+            patched(global_reg, "register", lambda f: sc.counting(f, reg_syncs)):
         slam = run_slam(cam, dev, s_grays, s_depths, wrap_finish=lambda f: sc.counting(f, finish_syncs))[0]
     slam_launches = {k.name: k.launches for k in _build.KERNELS}
     n_icp = len(icp_syncs)
     expect = {"tsdf_integrate": 0, "dense_normal_eq": sum(dense.DEFAULT_ITERS) * (SLAM_FRAMES - 1),
-              "nn1": (icp.DEFAULT_ITERS + 1) * n_icp, "marching_cubes": 0, "hamming": 0, "ba_schur": 0}
+              "nn1": (icp.DEFAULT_ITERS + 1) * n_icp, "marching_cubes": 0, "hamming": 0, "ba_schur": 0,
+              "ransac_rigid": len(reg_syncs)}
     if slam_launches != expect:
-        raise AssertionError(f"DenseSlam kernel launches {slam_launches}, expected {expect} ({n_icp} ICP calls)")
+        raise AssertionError(f"DenseSlam kernel launches {slam_launches}, expected {expect} ({n_icp} ICP calls, "
+                             f"{len(reg_syncs)} global registrations)")
     est = slam.trajectory()
     ate = traj.ate_rmse(est, slam_gt)
     flags = [m["icp_ok"] for m in slam.metrics if "icp_ok" in m]
@@ -3234,7 +3375,7 @@ def main() -> int:
           f"(capacities {[c.capacity for c in slam.submap_clouds]}), loop edges {loops}, "
           f"edges {len(slam.edges)}, ICP calls {n_icp}, launches {slam_launches}", flush=True)
     print(f"DenseSlam host syncs: {frame_syncs:.2f} per frame, per _finish_submap {finish_syncs}, "
-          f"inside each ICP call {icp_syncs}", flush=True)
+          f"inside each ICP call {icp_syncs}, inside each global registration {reg_syncs}", flush=True)
     print(f"DenseSlam ms/frame over {SLAM_TIMED_RUNS} runs after a warm run: median {np.median(ms_frame):.3f} "
           f"(runs {[round(t, 3) for t in ms_frame]}); ms per _finish_submap: median "
           f"{np.median(finish_ms):.3f} (all {[round(t, 1) for t in finish_ms]}) on {card}", flush=True)
@@ -3247,6 +3388,7 @@ def main() -> int:
     # ---- 9. sparse: the Hamming kernel, FusedFBASlam, the FBAFusion mesh ----
     phase9 = sparse_phase(cam, dev, scene, card, poses, grays, depths)
     results["hamming"] = phase9["kernel"]
+    results["ransac_rigid"] = phase9["ransac_kernel"]
 
     # ---- 10. BAFusion: the BA Schur kernel, FusedBASlam ----------------------
     phase10 = ba_phase(cam, dev, card, poses, grays, depths, phase9)
@@ -3273,11 +3415,14 @@ def main() -> int:
     path_launches.append(phase16["launches"])
 
     # the hamming launches are phases 9's and 13's counted runs, the ba_schur
-    # launches phases 10's and 13's; the other four keep the counts of phases
-    # 5, 7, 8, 14 and 16 (phase 11 prints its own). No single PyTorch call computes
-    # any of the six functions.
+    # launches phases 10's and 13's, the ransac_rigid launches phases 7's, 9's,
+    # 10's and 13's; the other four keep the counts of phases 5, 7, 8, 14 and
+    # 16 (phase 11 prints its own). No single PyTorch call computes any of the
+    # seven functions.
     counted_in = {_build.HAMMING.name: phase9["launches"] + phase13["launches"],
-                  _build.BA_SCHUR.name: phase10["launches"] + phase13["launches"]}
+                  _build.BA_SCHUR.name: phase10["launches"] + phase13["launches"],
+                  _build.RANSAC_RIGID.name: [slam_launches] + phase9["launches"] + phase10["launches"]
+                  + phase13["launches"]}
     kernels = [
         dict(name=k.name, route="cuda", source=k.source, replaces=k.replaces,
              launches=sum(n[k.name] for n in counted_in.get(k.name, path_launches)),

@@ -84,7 +84,12 @@ BA_SCHUR = Kernel(
     "onepiece_tpu_torch/csrc/ba_schur.cu",
     "onepiece_tpu/optimization/bundle.py:232",
 )
-KERNELS = (TSDF_INTEGRATE, DENSE_NORMAL_EQ, NN1, MARCHING_CUBES, HAMMING, BA_SCHUR)
+RANSAC_RIGID = Kernel(
+    "ransac_rigid",
+    "onepiece_tpu_torch/csrc/ransac_rigid.cu",
+    "onepiece_tpu/ops/ransac.py:42 ransac_rigid (XLA, not Pallas), from the draw to the best hypothesis",
+)
+KERNELS = (TSDF_INTEGRATE, DENSE_NORMAL_EQ, NN1, MARCHING_CUBES, HAMMING, BA_SCHUR, RANSAC_RIGID)
 
 
 def reset_launch_counts() -> None:
@@ -186,6 +191,12 @@ _SIGNATURES = {
     ],
     # frame, point_ptr, point_obs, per-observation scratch, Vinv, b_p, dc, P, dp, stream
     "ba_back_substitute": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP, _VP],
+    # src, dst, valid, depths (or null), depth stride, N, samples (int64), H, S, threshold, thr2, power
+    # products, hypothesis T (H, 12), hypothesis counts and the best's index (H + 1,), counter; the best's
+    # T, inliers, count (int64), d2, and the gates (N,); stream
+    "ransac_rigid": [
+        _VP, _VP, _VP, _VP, _I, _I, _VP, _I, _I, _F, _F, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+    ],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -10,6 +10,11 @@ one is refit; nothing depends on the data to decide what runs next.
 Sampling is split from scoring: `sample_indices` draws, and the scoring
 functions take `samples=` to use given indices instead (the tests feed the
 JAX package's draws in: the two RNGs give different numbers).
+
+`ransac_rigid` draws in PyTorch on every device. From the draw to the best
+hypothesis it launches the hand-written CUDA kernel (`csrc/ransac_rigid.cu`)
+on CUDA tensors and runs its plain version, the PyTorch code below, on CPU
+tensors. The refit of the best hypothesis is the same PyTorch code on both.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import _build
 from ..geometry import transforms
 from ..utils import tracing
 
@@ -32,6 +38,14 @@ class RansacResult(NamedTuple):
     inliers: torch.Tensor  # (N,) bool
     num_inliers: torch.Tensor  # () int64
     rmse: torch.Tensor  # () inlier rmse
+
+
+class BestHypothesis(NamedTuple):
+    T: torch.Tensor  # (4, 4) the first hypothesis with the most inliers
+    inliers: torch.Tensor  # (N,) bool
+    count: torch.Tensor  # () int64
+    d2: torch.Tensor  # (N,) its squared residuals
+    gate: torch.Tensor | float  # (N,) or (): the squared gate
 
 
 def sample_indices(
@@ -63,42 +77,107 @@ def ransac_rigid(
     With `norm_z` (per-correspondence depths) the gate is the reference's
     depth-normalised error ||T p - q|| / z <= threshold, and the rmse is
     reported in the same normalised units. Its stages are spans of the
-    caller's layer: `.hypotheses`, `.score`, `.refit`."""
+    caller's layer: `.hypotheses`, then `.fit` (the kernel) on the card or
+    `.score` on the CPU, then `.refit`."""
     with tracing.span(".hypotheses"):
         if samples is None:
             samples = sample_indices(generator, valid, num_hypotheses, sample_size)
-        Ts = transforms.kabsch_fast(src[samples], dst[samples])  # (H, 4, 4)
-    with tracing.span(".score"):
-        if norm_z is None:
-            # squared in float32, as the JAX package squares its traced threshold
-            thr2 = float(np.float32(threshold) * np.float32(threshold))
-        else:
-            thr2 = torch.square(threshold * norm_z)
-        pred = torch.einsum("hij,nj->hni", Ts[:, :3, :3], src) + Ts[:, None, :3, 3]
-        d2 = torch.sum((pred - dst[None]) ** 2, dim=-1)  # (H, N)
-        inl = (d2 < thr2) & valid[None, :]
-        counts = torch.sum(inl, dim=-1)
-        best = torch.argmax(counts).reshape(1)
+        if not src.is_cuda:
+            Ts = transforms.kabsch_fast(src[samples], dst[samples])  # (H, 4, 4)
+    if src.is_cuda:
+        with tracing.span(".fit"):
+            best = _best_cuda(src, dst, valid, samples, threshold, norm_z)[0]
+    else:
+        with tracing.span(".score"):
+            best = _best(src, dst, valid, threshold, Ts, norm_z)
+    with tracing.span(".refit"):
+        return _refit(src, dst, valid, best, norm_z)
+
+
+def ransac_rigid_reference(src, dst, valid, threshold: float, samples, norm_z=None) -> RansacResult:
+    """The plain route after the draw, on any device (the card tests and
+    `chip_smoke.py` hold the kernel route to it on the card)."""
+    best = _best(src, dst, valid, threshold, transforms.kabsch_fast(src[samples], dst[samples]), norm_z)
+    return _refit(src, dst, valid, best, norm_z)
+
+
+def _thr2(threshold: float) -> float:
+    """The fixed gate, squared in float32 as the JAX package squares its
+    traced threshold."""
+    return float(np.float32(threshold) * np.float32(threshold))
+
+
+def _best(src, dst, valid, threshold, Ts, norm_z) -> BestHypothesis:
+    """The plain version of the kernel: hypotheses Ts (H, 4, 4) scored, the
+    first with the most inliers."""
+    thr2 = _thr2(threshold) if norm_z is None else torch.square(threshold * norm_z)
+    pred = torch.einsum("hij,nj->hni", Ts[:, :3, :3], src) + Ts[:, None, :3, 3]
+    d2 = torch.sum((pred - dst[None]) ** 2, dim=-1)  # (H, N)
+    inl = (d2 < thr2) & valid[None, :]
+    counts = torch.sum(inl, dim=-1)
+    best = torch.argmax(counts).reshape(1)
 
     def at_best(t):  # t[best] by index_select: indexing with a device scalar would read it on the host
         return t.index_select(0, best)[0]
 
-    with tracing.span(".refit"):
-        best_inl = at_best(inl)
-        T_refit = transforms.kabsch(src, dst, best_inl.to(torch.float32))
-        d2_r = torch.sum((src @ T_refit[:3, :3].T + T_refit[:3, 3] - dst) ** 2, dim=-1)
-        inl_r = (d2_r < thr2) & valid
-        better = torch.sum(inl_r) >= at_best(counts)
-        T_out = torch.where(better, T_refit, at_best(Ts))
-        inl_out = torch.where(better, inl_r, best_inl)
-        nin = torch.sum(inl_out)
-        d2_out = torch.where(better, d2_r, at_best(d2))
-        if norm_z is not None:
-            d2_out = d2_out / torch.clamp(torch.square(norm_z), min=1e-6)
-        rmse = torch.sqrt(
-            torch.sum(torch.where(inl_out, d2_out, 0.0)) / torch.clamp(nin.to(torch.float32), min=1.0)
-        )
-        return RansacResult(T_out, inl_out, nin, rmse)
+    return BestHypothesis(at_best(Ts), at_best(inl), at_best(counts), at_best(d2), thr2)
+
+
+def _refit(src, dst, valid, best: BestHypothesis, norm_z) -> RansacResult:
+    """The SVD Kabsch over the best's inliers, kept where it loses none."""
+    T_refit = transforms.kabsch(src, dst, best.inliers.to(torch.float32))
+    d2_r = torch.sum((src @ T_refit[:3, :3].T + T_refit[:3, 3] - dst) ** 2, dim=-1)
+    inl_r = (d2_r < best.gate) & valid
+    better = torch.sum(inl_r) >= best.count
+    T_out = torch.where(better, T_refit, best.T)
+    inl_out = torch.where(better, inl_r, best.inliers)
+    nin = torch.sum(inl_out)
+    d2_out = torch.where(better, d2_r, best.d2)
+    if norm_z is not None:
+        d2_out = d2_out / torch.clamp(torch.square(norm_z), min=1e-6)
+    rmse = torch.sqrt(
+        torch.sum(torch.where(inl_out, d2_out, 0.0)) / torch.clamp(nin.to(torch.float32), min=1.0)
+    )
+    return RansacResult(T_out, inl_out, nin, rmse)
+
+
+_COUNTERS: dict = {}  # a zeroed ticket counter a device; the kernel leaves it at 0
+
+
+def _best_cuda(src, dst, valid, samples, threshold: float, norm_z):
+    """One launch of `csrc/ransac_rigid.cu`: (BestHypothesis, the hypotheses'
+    (H, 12) R row-major and t, their (H + 1,) inlier counts followed by the
+    best's index). The depths may be a strided view (`src[:, 2]`)."""
+    dev, n = src.device, src.shape[0]
+    src, dst, samples = src.contiguous(), dst.contiguous(), samples.to(torch.int64).contiguous()
+    _build.require(src, "src", torch.float32, (n, 3), dev)
+    _build.require(dst, "dst", torch.float32, (n, 3), dev)
+    _build.require(valid, "valid", torch.bool, (n,), dev)
+    _build.require(samples, "samples", torch.int64, (None, None), dev)
+    if norm_z is not None and (norm_z.device != dev or norm_z.dtype != torch.float32 or norm_z.shape != (n,)):
+        raise ValueError(f"norm_z: {norm_z.dtype} {tuple(norm_z.shape)} on {norm_z.device}, expected float32 "
+                         f"({n},) on {dev}")
+    h, s = samples.shape
+    if n < 1 or h < 1 or s < 1:
+        raise ValueError(f"ransac_rigid: {n} correspondences, samples {(h, s)}: none may be empty")
+    if dev not in _COUNTERS:
+        _COUNTERS[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+    hyp_T = torch.empty((h, 12), dtype=torch.float32, device=dev)
+    hyp_count = torch.empty(h + 1, dtype=torch.int32, device=dev)
+    best = BestHypothesis(
+        torch.empty((4, 4), dtype=torch.float32, device=dev), torch.empty(n, dtype=torch.bool, device=dev),
+        torch.empty((), dtype=torch.int64, device=dev), torch.empty(n, dtype=torch.float32, device=dev),
+        torch.empty(n, dtype=torch.float32, device=dev))
+    err = _build.library().ransac_rigid(
+        src.data_ptr(), dst.data_ptr(), valid.data_ptr(), 0 if norm_z is None else norm_z.data_ptr(),
+        0 if norm_z is None else norm_z.stride(0), n, samples.data_ptr(), h, s, threshold, _thr2(threshold),
+        max(1, (transforms.POWER_ITERS + 3) // 4), hyp_T.data_ptr(), hyp_count.data_ptr(),
+        _COUNTERS[dev].data_ptr(), *(t.data_ptr() for t in best), _build.stream_handle(src),
+    )
+    _build.check(err, _build.RANSAC_RIGID)
+    _build.RANSAC_RIGID.launches += 1
+    tracing.count("ransac.kernel")
+    return best, hyp_T, hyp_count
 
 
 def ransapc_filter(

@@ -25,6 +25,11 @@ the back-substitution likewise for the RGB-D model (sums in another order)
 and, for the 2-D model, within 1e-2 of the plain version run in float64,
 as the float32 plain version is (`_held`: the 2-D float32 system is only
 as accurate as that), V^-1 of the padding points equal; two calls
+bit-equal; rigid RANSAC on one draw: hypotheses bit-equal (the kernel
+keeps the library's order of operations on the card), each count equal
+but for points within 1e-6 relative of their gate, the best index and T
+equal; the whole call (the refit is the plain route's code) T within 1e-5,
+inliers and their number equal, rmse within 1e-5 relative; two calls
 bit-equal. The kernels are
 built without implicit FMA contraction (the TSDF transform's FMAs are
 explicit, and its plain version makes the same ones), so per-element
@@ -37,7 +42,7 @@ import pytest
 import torch
 
 from onepiece_tpu_torch import _build
-from onepiece_tpu_torch.geometry import se3
+from onepiece_tpu_torch.geometry import se3, transforms
 from onepiece_tpu_torch.geometry.camera import TUM_CAMERA
 from onepiece_tpu_torch.integration import device_hash as dh
 from onepiece_tpu_torch.integration.blocks import TSDFVolume, neighbor_slots_device
@@ -52,6 +57,7 @@ from onepiece_tpu_torch.lcdetection import mild
 from onepiece_tpu_torch.ops import ba_schur
 from onepiece_tpu_torch.ops import hamming
 from onepiece_tpu_torch.ops import nn1 as nn1_ops
+from onepiece_tpu_torch.ops import ransac
 from onepiece_tpu_torch.ops import tsdf as tsdf_ops
 from onepiece_tpu_torch.ops import tsdf_slots
 from onepiece_tpu_torch.registration import icp
@@ -277,7 +283,7 @@ def test_slice_on_the_card_matches_cpu(dev, frames):
     est_card, _ = on_card.finalize()
     assert {k.name: k.launches for k in _build.KERNELS} == {
         "tsdf_integrate": 4, "dense_normal_eq": 3 * sum(on_card.iters), "nn1": 0, "marching_cubes": 0,
-        "hamming": 0, "ba_schur": 0}
+        "hamming": 0, "ba_schur": 0, "ransac_rigid": 0}
     on_cpu = FusedDenseFusion(cam, device="cpu", **kw)
     on_cpu.process_chunk(g.cpu(), d.cpu())
     est_cpu, _ = on_cpu.finalize()
@@ -388,27 +394,34 @@ def _dense_slam(dev, grays, depths):
 
 def test_dense_slam_on_the_card(dev, slam_frames):
     """DenseSlam at 160x120, 12 frames in submaps of 4: every ICP iteration
-    (and the final scoring pass) launches the nn1 kernel once; the card's
-    run keeps the CPU run's decisions and poses."""
+    (and the final scoring pass) launches the nn1 kernel once, every global
+    registration the RANSAC kernel once; the card's run keeps the CPU run's
+    decisions and poses."""
+    from onepiece_tpu_torch.registration import global_reg
+
     poses, grays, depths = slam_frames
-    icp_calls = []
-    point_to_point = icp.point_to_point
+    icp_calls, reg_calls = [], []
+    point_to_point, register = icp.point_to_point, global_reg.register
 
     def counted(*args, **kwargs):
         icp_calls.append(1)
         return point_to_point(*args, **kwargs)
 
-    icp.point_to_point = counted
+    def counted_reg(*args, **kwargs):
+        reg_calls.append(1)
+        return register(*args, **kwargs)
+
+    icp.point_to_point, global_reg.register = counted, counted_reg
     try:
         _build.reset_launch_counts()
         on_card = _dense_slam(dev, grays, depths)
     finally:
-        icp.point_to_point = point_to_point
+        icp.point_to_point, global_reg.register = point_to_point, register
     launches = {k.name: k.launches for k in _build.KERNELS}
-    assert len(icp_calls) >= 2
+    assert len(icp_calls) >= 2 and len(reg_calls) >= 1
     assert launches == {"tsdf_integrate": 0, "dense_normal_eq": 11 * sum(dense.DEFAULT_ITERS),
                         "nn1": (icp.DEFAULT_ITERS + 1) * len(icp_calls), "marching_cubes": 0, "hamming": 0,
-                        "ba_schur": 0}
+                        "ba_schur": 0, "ransac_rigid": len(reg_calls)}
     on_cpu = _dense_slam("cpu", grays.cpu(), depths.cpu())
     flags = [[m["icp_ok"] for m in s.metrics if "icp_ok" in m] for s in (on_card, on_cpu)]
     assert flags[0] == flags[1] == [False, True, True]
@@ -994,15 +1007,16 @@ def _ba_run(dev, grays, depths):
 
 def test_fused_ba_on_the_card(dev, frames):
     """FusedBASlam at 160x120 on the card: the BA kernel runs 2 launches an
-    LM iteration, no other kernel but Hamming; the trajectory in the CPU
-    run's regime (the two devices draw different random numbers); two card
-    runs bit-equal, track state included."""
+    LM iteration, the RANSAC kernel 2 a track, no other kernel but Hamming;
+    the trajectory in the CPU run's regime (the two devices draw different
+    random numbers); two card runs bit-equal, track state included."""
     poses, grays, depths = frames
     _build.reset_launch_counts()
     a, a_reads = _ba_run(dev, grays, depths)
     launches = {k.name: k.launches for k in _build.KERNELS}
     assert launches["ba_schur"] == 2 * 6 and launches["hamming"] >= 2 * (len(grays) - 1)
-    assert sum(launches.values()) == launches["ba_schur"] + launches["hamming"]
+    assert launches["ransac_rigid"] >= 2 * (len(grays) - 1) and launches["ransac_rigid"] % 2 == 0
+    assert sum(launches.values()) == launches["ba_schur"] + launches["hamming"] + launches["ransac_rigid"]
     b, _ = _ba_run(dev, grays, depths)
     cpu, cpu_reads = _ba_run("cpu", grays.cpu(), depths.cpu())
     est = a.trajectory()
@@ -1356,3 +1370,217 @@ def test_scannet_model_on_the_card_against_the_cpu(dev, tmp_path):
                                             neighbor_slots_device(coords), coords, vk.voxel_size)
     np.testing.assert_array_equal(tvk, vp.numpy())
     np.testing.assert_array_equal(tck, cp.numpy())
+
+
+# ---- rigid RANSAC: csrc/ransac_rigid.cu against the plain route ------------
+
+NEAR_GATE = 1e-6  # a point whose plain d2 lies this close to its gate (relative) may score either way
+
+
+def _recorded_ransac_calls(fn) -> list:
+    """fn() with each ransac_rigid call's inputs kept: (src, dst, valid,
+    threshold, H, S, norm_z), norm_z a view of src's z as the tracker
+    passes it."""
+    calls, orig = [], ransac.ransac_rigid
+
+    def recording(generator, src, dst, valid, threshold, num_hypotheses, sample_size, samples=None, norm_z=None):
+        s = src.clone()
+        z = None if norm_z is None else (s[:, 2] if torch.equal(norm_z, src[:, 2]) else norm_z.clone())
+        calls.append((s, dst.clone(), valid.clone(), threshold, num_hypotheses, sample_size, z))
+        return orig(generator, src, dst, valid, threshold, num_hypotheses, sample_size, samples, norm_z)
+
+    ransac.ransac_rigid = recording
+    try:
+        fn()
+    finally:
+        ransac.ransac_rigid = orig
+    return calls
+
+
+@pytest.fixture(scope="module")
+def ransac_tracks(dev):
+    """The rigid RANSAC calls, both rounds, of tracks over frames 0-6 of the
+    12-frame orbit at 160x120 (500 keypoints, FAST threshold 0.01, depths
+    as the gate's z): the frames of `tests/test_torch_sparse_odometry.py`'s
+    `orbit7`, rendered on the card."""
+    from onepiece_tpu_torch.odometry import sparse
+
+    scene = synthetic.default_scene(dev)
+    out = [synthetic.render(scene, torch.from_numpy(p).to(dev), CAM.fx, CAM.fy, CAM.cx, CAM.cy, CAM.height,
+                            CAM.width, num_steps=64) for p in synthetic.orbit_trajectory(12)[:7]]
+    f = sparse.extract_sparse_frames_batch(torch.stack([g for _, g in out]), torch.stack([d for d, _ in out]), CAM,
+                                           max_keypoints=500, threshold=0.01)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    pairs = [(0, 1), (1, 2), (2, 3), (3, 4), (4, 5), (5, 6), (0, 2), (0, 3), (3, 6)]
+    frame = lambda i: sparse.map_frame(lambda t: t[i], f)  # noqa: E731
+    return _recorded_ransac_calls(lambda: [sparse.sparse_tracking(frame(i), frame(j), CAM, gen) for i, j in pairs])
+
+
+def _ransac_kernel_vs_plain(src, dst, valid, threshold, samples, norm_z=None, what="") -> dict:
+    """The kernel route against the plain route on the same draw. The
+    kernel's stage: every hypothesis bit-equal to the plain route's (the
+    kernel keeps the library's order of operations); each count equal but
+    for points within NEAR_GATE of their gate (reported); the best index,
+    its T and its count equal, its inlier mask equal but for such points.
+    The whole call (the refit is the plain route's code): T within 1e-5
+    (bit-equality reported), inliers and their number equal, rmse within
+    1e-5 relative. Two calls bit-equal."""
+    best, hyp_T, hyp_count = ransac._best_cuda(src, dst, valid, samples, threshold, norm_z)
+    again = ransac._best_cuda(src, dst, valid, samples, threshold, norm_z)
+    res = ransac.ransac_rigid(None, src, dst, valid, threshold, 0, 0, samples=samples, norm_z=norm_z)
+    res2 = ransac.ransac_rigid(None, src, dst, valid, threshold, 0, 0, samples=samples, norm_z=norm_z)
+    plain = ransac.ransac_rigid_reference(src, dst, valid, threshold, samples, norm_z)
+    h = samples.shape[0]
+    Ts = transforms.kabsch_fast(src[samples], dst[samples])
+    plain_best = ransac._best(src, dst, valid, threshold, Ts, norm_z)
+    repeat = all(torch.equal(x, y) for x, y in zip((*best, hyp_T, hyp_count, *res), (*again[0], *again[1:], *res2)))
+    plain_T = torch.cat([Ts[:, :3, :3].reshape(h, 9), Ts[:, :3, 3]], dim=1)
+    hyp_err = float((hyp_T - plain_T).abs().max())
+    gate = torch.as_tensor(plain_best.gate)
+    d2 = torch.sum((torch.einsum("hij,nj->hni", Ts[:, :3, :3], src) + Ts[:, None, :3, 3] - dst[None]) ** 2, dim=-1)
+    counts = torch.sum((d2 < gate) & valid[None], dim=-1)
+    near = (torch.abs(d2 - gate) <= NEAR_GATE * gate) & valid[None]
+    diff = (hyp_count[:h].to(torch.int64) - counts).abs()
+    report = {int(i): (int(diff[i]), int(near[i].sum())) for i in torch.nonzero(diff > 0)[:, 0].tolist()}
+    b, b_plain = int(hyp_count[h]), int(torch.argmax(counts))
+    mask_off = best.inliers != plain_best.inliers
+    t_err = float((res.T - plain.T).abs().max())
+    rmse, rmse_plain = float(res.rmse), float(plain.rmse)
+    print(f"{what}: N {src.shape[0]} ({int(valid.sum())} valid), H {h}, S {samples.shape[1]}: hypotheses within "
+          f"{hyp_err:.3g} (bit-equal {torch.equal(hyp_T, plain_T)}); counts off at {report} (hypothesis: "
+          f"(difference, points within {NEAR_GATE:g} of the gate)); best {b} / {b_plain}, its mask off at "
+          f"{int(mask_off.sum())} points; T within {t_err:.3g} (bit-equal {torch.equal(res.T, plain.T)}); inliers "
+          f"{int(res.num_inliers)} / {int(plain.num_inliers)}; rmse {rmse:.9g} / {rmse_plain:.9g}; two calls "
+          f"bit-equal {repeat}")
+    assert repeat, what
+    assert torch.equal(hyp_T, plain_T), (what, hyp_err)
+    assert all(d <= n for d, n in report.values()), (what, report)
+    assert b == b_plain and torch.equal(best.T, plain_best.T) and int(best.count) == int(plain_best.count), what
+    assert not (mask_off & ~near[b]).any(), what
+    assert t_err <= 1e-5, (what, res.T, plain.T)
+    assert torch.equal(res.inliers, plain.inliers) and int(res.num_inliers) == int(plain.num_inliers), what
+    assert abs(rmse - rmse_plain) <= 1e-5 * max(rmse_plain, 1e-30), (what, rmse, rmse_plain)
+    return dict(best=b, counts=hyp_count[:h], T=res.T, nin=int(res.num_inliers))
+
+
+def test_ransac_kernel_matches_plain_on_orbit_tracks(dev, ransac_tracks):
+    assert len(ransac_tracks) == 18  # 9 tracks, two rounds each
+    gen = torch.Generator(device=dev).manual_seed(11)
+    tracked = 0
+    for k, (src, dst, valid, thr, h, s, z) in enumerate(ransac_tracks):
+        samples = ransac.sample_indices(gen, valid, h, s)
+        out = _ransac_kernel_vs_plain(src, dst, valid, thr, samples, z, what=f"orbit call {k}")
+        assert z is not None
+        tracked += out["nin"] >= 10
+    assert tracked >= 14
+
+
+def _cloud(dev, n: int, seed: int, outliers: float = 0.3, noise: float = 0.003):
+    """A random cloud, its image under a rigid motion with noise and a share
+    of outliers, 95 % valid; float32 on the card."""
+    rng = np.random.default_rng(seed)
+    src = rng.uniform([-2, -1.5, 0.5], [2, 1.5, 4.5], (n, 3))
+    R = se3.so3_exp(torch.from_numpy(rng.normal(size=3) * 0.2)).numpy()
+    dst = src @ R.T + rng.normal(size=3) * 0.3 + rng.normal(size=(n, 3)) * noise
+    bad = rng.random(n) < outliers
+    dst[bad] += rng.normal(size=(int(bad.sum()), 3))
+    valid = rng.random(n) > 0.05
+    t = lambda x, dt=torch.float32: torch.tensor(x, dtype=dt, device=dev)  # noqa: E731
+    return t(src), t(dst), t(valid, torch.bool), t(bad, torch.bool)
+
+
+def test_ransac_kernel_at_global_registration_shape(dev):
+    """H 4,096, S 4, the fixed gate of `global_reg.RansacParams`, 5,000
+    correspondences: more than one shared-memory tile."""
+    src, dst, valid, _ = _cloud(dev, 5000, seed=4)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    samples = ransac.sample_indices(gen, valid, 4096, 4)
+    out = _ransac_kernel_vs_plain(src, dst, valid, 0.075, samples, what="global registration")
+    assert out["nin"] > 2000
+
+
+@pytest.mark.parametrize("case", ["few_valid", "no_valid", "collinear", "ties", "zero_inliers"])
+def test_ransac_kernel_edge_cases(dev, case):
+    src, dst, valid, bad = _cloud(dev, 300, seed=6)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    threshold, h, s = 0.01, 64, 8
+    if case == "few_valid":  # fewer valid correspondences than a sample
+        valid = torch.zeros_like(valid)
+        valid[[3, 50, 90, 151, 299]] = True
+    elif case == "no_valid":
+        valid = torch.zeros_like(valid)
+    elif case == "zero_inliers":
+        threshold = 0.0
+    samples = ransac.sample_indices(gen, valid, h, s)
+    if case == "collinear":  # the first 16 hypotheses sample points on one line
+        line = torch.linspace(0, 1, s, device=dev)[:, None] * torch.tensor([0.3, -0.2, 0.5], device=dev)
+        src[:s] = line + torch.tensor([0.1, 0.2, 2.0], device=dev)
+        dst[:s] = src[:s] @ torch.tensor([[0, -1, 0], [1, 0, 0], [0, 0, 1.0]], device=dev).T
+        samples[:16] = torch.arange(s, device=dev)
+    elif case == "ties":  # 5 and 9 draw the same inlier sample, the others one of outliers
+        samples[:] = torch.nonzero(bad)[:s, 0]
+        samples[5] = samples[9] = torch.nonzero(~bad)[:s, 0]
+    out = _ransac_kernel_vs_plain(src, dst, valid, threshold, samples, norm_z=src[:, 2], what=case)
+    if case in ("no_valid", "zero_inliers"):
+        assert out["best"] == 0 and out["nin"] == 0 and not out["counts"].any()
+    if case == "ties":
+        top = int(out["counts"].max())
+        assert out["best"] == 5 and int(out["counts"][9]) == top and int((out["counts"] == top).sum()) >= 2
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("kind", ["well_posed", "reflected"])
+def test_ransac_kernel_refit_matches_kabsch(dev, kind, seed):
+    """Every correspondence an inlier (a gate of 1 km), so the output is the
+    refit of the kernel's best: `transforms.kabsch` over every
+    correspondence, on the card, within 1e-5."""
+    rng = np.random.default_rng(seed)
+    src = rng.normal(size=(200, 3)) * [1.0, 0.6, 0.3]
+    if kind == "well_posed":
+        R = se3.so3_exp(torch.from_numpy(rng.normal(size=3))).numpy()
+        dst = src @ R.T + rng.normal(size=3) + rng.normal(size=(200, 3)) * 0.01
+    else:  # a mirror image: the best rotation flips the smallest singular direction
+        dst = src * [1.0, 1.0, -1.0] + rng.normal(size=(200, 3)) * 0.01
+    src, dst = (torch.tensor(x, dtype=torch.float32, device=dev) for x in (src, dst))
+    valid = torch.ones(200, dtype=torch.bool, device=dev)
+    samples = ransac.sample_indices(torch.Generator(device=dev).manual_seed(seed), valid, 16, 4)
+    res = ransac.ransac_rigid(None, src, dst, valid, 1000.0, 16, 4, samples=samples)
+    ref = transforms.kabsch(src, dst, torch.ones(200, device=dev))
+    assert int(res.num_inliers) == 200
+    assert float((res.T - ref).abs().max()) <= 1e-5, (res.T, ref)
+    assert abs(float(torch.linalg.det(res.T[:3, :3])) - 1.0) < 1e-5
+
+
+def test_ransac_kernel_launches_once_and_waits_only_in_the_refit(dev):
+    """A call on the card is one launch, counted by `RANSAC_RIGID.launches`
+    and the `ransac.kernel` counter; the kernel's stage makes the host wait
+    nowhere (sync debug mode "error" raises at a synchronising call), and
+    the call's only waits are the refit's library SVD (`sync.kabsch_svd`, 2),
+    as on the plain route."""
+    import warnings
+
+    src, dst, valid, _ = _cloud(dev, 1000, seed=9)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ransac.ransac_rigid(gen, src, dst, valid, 0.02, 256, 8, norm_z=src[:, 2])  # warm
+    samples = ransac.sample_indices(gen, valid, 256, 8)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ransac._best_cuda(src, dst, valid, samples, 0.02, src[:, 2])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    before = tracing.counters()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                ransac.ransac_rigid(gen, src, dst, valid, 0.02, 256, 8, norm_z=src[:, 2])
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    waits = sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+    added = {k: v - before.get(k, 0) for k, v in tracing.counters().items() if v != before.get(k, 0)}
+    assert added == {"ransac.kernel": 1, "sync.kabsch_svd": 2} and waits == 2, (added, waits)
+    assert {k.name: k.launches for k in _build.KERNELS if k.launches} == {"ransac_rigid": 1}

@@ -114,6 +114,45 @@ def test_ransac_rigid_depth_normalised_gate_matches_jax():
     assert abs(float(rt.rmse) - float(rj.rmse)) < 1e-6
 
 
+@pytest.mark.parametrize("gate", ["fixed", "depth"])
+def test_ransac_rigid_on_the_cpu_takes_the_plain_route(gate):
+    """On CPU tensors `ransac_rigid` runs the plain route: no kernel launch,
+    no `ransac.kernel` count, its `.score` and `.refit` spans, and the plain
+    route's result on the same draw bit for bit, within 1e-5 of the JAX
+    package's on that draw."""
+    from onepiece_tpu_torch import _build
+    from onepiece_tpu_torch.utils import tracing
+
+    rng = np.random.default_rng(12)
+    src = rng.uniform([-1, -1, 0.5], [1, 1, 4.0], (300, 3)).astype(np.float32)
+    dst = (src + np.float32([0.1, -0.2, 0.05]) + rng.normal(size=src.shape) * 0.002).astype(np.float32)
+    out = rng.random(300) < 0.3
+    dst[out] += rng.normal(size=(out.sum(), 3)).astype(np.float32) * 0.3
+    valid = rng.random(300) > 0.05
+    src_t, dst_t, valid_t = torch.from_numpy(src), torch.from_numpy(dst), torch.from_numpy(valid)
+    z = src_t[:, 2] if gate == "depth" else None
+    key = jax.random.PRNGKey(4)
+    samples = torch.from_numpy(np.asarray(jransac._sample_indices(key, jnp.asarray(valid), 64, 8)).astype(np.int64))
+    _build.reset_launch_counts()
+    tracing.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with tracing.span("sparse.track"):
+            res = transac.ransac_rigid(None, src_t, dst_t, valid_t, threshold=0.01, num_hypotheses=64,
+                                       sample_size=8, samples=samples, norm_z=z)
+    names = {sp.name for sp in tracing.spans()}
+    assert _build.RANSAC_RIGID.launches == 0 and "ransac.kernel" not in tracing.counters()
+    assert {"sparse.hypotheses", "sparse.score", "sparse.refit"} <= names and "sparse.fit" not in names
+    tracing.clear()
+    ref = transac.ransac_rigid_reference(src_t, dst_t, valid_t, 0.01, samples, z)
+    for a, b in zip(res, ref):
+        assert torch.equal(a, b)
+    rj = jransac.ransac_rigid(key, jnp.asarray(src), jnp.asarray(dst), jnp.asarray(valid), threshold=0.01,
+                              num_hypotheses=64, sample_size=8, norm_z=None if z is None else jnp.asarray(src[:, 2]))
+    assert int(res.num_inliers) == int(rj.num_inliers) > 100
+    assert np.array_equal(res.inliers.numpy(), np.asarray(rj.inliers))
+    assert np.abs(res.T.numpy() - np.asarray(rj.T)).max() < 1e-5
+
+
 def test_ransapc_defaults_match_jax():
     import inspect
 
