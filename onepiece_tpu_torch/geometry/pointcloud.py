@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..ops import knn as knn_ops
+from ..utils import tracing
 from . import se3, transforms
 
 _KEY_PAD = torch.iinfo(torch.int32).max  # key of an invalid point: sorts last
@@ -94,7 +95,8 @@ def compact(cloud: PointCloud) -> PointCloud:
     """Move the valid points to the front and shrink the capacity to the
     next bucket. The host needs the count for the new capacity: one sync;
     the gather stays on the device."""
-    keep = torch.nonzero(cloud.valid)[:, 0]  # the valid entries, in order
+    with tracing.sync("submap_compact"):
+        keep = torch.nonzero(cloud.valid)[:, 0]  # the valid entries, in order
     n = keep.shape[0]
     cap = _next_capacity(n)
     fields = []
@@ -151,10 +153,12 @@ def voxel_downsample(cloud: PointCloud, voxel_size: float) -> PointCloud:
 
 def estimate_normals(cloud: PointCloud, k: int = 16) -> PointCloud:
     """Normals from the k nearest neighbours (smallest covariance
-    eigenvector), oriented towards the origin (the viewpoint)."""
-    idx = knn_ops.knn(cloud.points, cloud.points, cloud.valid, k=k)[0]
-    normals = transforms.estimate_normals_from_neighbors(cloud.points[idx], cloud.valid[idx])
-    flip = torch.sum(normals * cloud.points, dim=-1) > 0.0
-    normals = torch.where(flip[:, None], -normals, normals)
-    normals = torch.where(cloud.valid[:, None], normals, 0.0)
-    return dataclasses.replace(cloud, normals=normals)
+    eigenvector), oriented towards the origin (the viewpoint). A span
+    `.normals` of the caller's layer."""
+    with tracing.span(".normals"):
+        idx = knn_ops.knn(cloud.points, cloud.points, cloud.valid, k=k)[0]
+        normals = transforms.estimate_normals_from_neighbors(cloud.points[idx], cloud.valid[idx])
+        flip = torch.sum(normals * cloud.points, dim=-1) > 0.0
+        normals = torch.where(flip[:, None], -normals, normals)
+        normals = torch.where(cloud.valid[:, None], normals, 0.0)
+        return dataclasses.replace(cloud, normals=normals)

@@ -14,6 +14,7 @@ from ..utils import tracing
 from .se3 import make_T
 
 POWER_ITERS = 32  # kabsch_fast: iterations of the power method (on K^4: 8 products)
+EIGH_BATCH = 16384  # 3x3 problems a batched eigh call (cuSOLVER's batched syev refuses 32,768 on the card)
 
 
 def _det3(M: torch.Tensor) -> torch.Tensor:
@@ -139,13 +140,16 @@ def plane_point_distance(plane: torch.Tensor, points: torch.Tensor) -> torch.Ten
 
 def estimate_normals_from_neighbors(neighbors: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Per-point unit normal from its K gathered neighbours: the eigenvector
-    of the smallest eigenvalue of their covariance.
+    of the smallest eigenvalue of their covariance, the eigenproblems solved
+    EIGH_BATCH at a time.
     neighbors (..., N, K, 3), valid (..., N, K) -> (..., N, 3)."""
     w = valid.to(neighbors.dtype)
     wsum = torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1.0)
     mu = torch.sum(neighbors * w[..., None], dim=-2) / wsum
     c = (neighbors - mu[..., None, :]) * w[..., None]
     cov = torch.einsum("...ki,...kj->...ij", c, c)
-    _, evecs = torch.linalg.eigh(cov)
+    parts = cov.reshape(-1, 3, 3).split(EIGH_BATCH)
+    with tracing.sync("normals_eigh", len(parts)):  # on the card the library's eigh waits once a call
+        evecs = torch.cat([torch.linalg.eigh(part)[1] for part in parts]).reshape(cov.shape)
     n = evecs[..., :, 0]
     return n / torch.clamp(torch.linalg.norm(n, dim=-1, keepdim=True), min=1e-12)

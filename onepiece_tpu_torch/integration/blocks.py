@@ -146,9 +146,10 @@ class TSDFVolume:
             colour = self._tensor(rgb).permute(2, 0, 1)
         img = torch.cat([depth[None], colour])  # (4, H, W) [depth, r, g, b]
         slots = torch.tensor([self.slot_of[t] for t in map(tuple, coords.tolist())], dtype=torch.int32)
-        # keys and slots in one host-to-device copy
-        ks = torch.stack([tsdf_ops.pack_block_keys(torch.from_numpy(coords)), slots]).to(self.device)
-        T_cw = se3.inverse_T(self._tensor(T_wc))
+        # keys and slots in one host-to-device copy, then the pose
+        with tracing.sync("volume_upload", 2):
+            ks = torch.stack([tsdf_ops.pack_block_keys(torch.from_numpy(coords)), slots]).to(self.device)
+            T_cw = se3.inverse_T(self._tensor(T_wc))
         tsdf_slots.integrate_slots(
             self.vox, ks[0], ks[1], img, T_cw, camera.fx, camera.fy, camera.cx, camera.cy,
             self.voxel_size, self.truncation, self.max_weight,
@@ -166,13 +167,16 @@ class TSDFVolume:
         for later frames) until the keys fit, so no block is dropped. (The
         JAX package caps at 4096 and drops the rest without a word.)"""
         depth = self._tensor(depth)
-        T = self._tensor(T_wc)
+        with tracing.sync("volume_pose"):
+            T = self._tensor(T_wc)
         saturated = False
         while True:
             keys = tsdf_ops.touched_block_keys(
                 depth, T, camera.fx, camera.fy, camera.cx, camera.cy, self.voxel_size, self.truncation,
                 max_blocks=self.max_blocks,
-            ).cpu()
+            )
+            with tracing.sync("volume_keys"):
+                keys = keys.cpu()
             if int((keys != tsdf_ops.INVALID_KEY).sum()) < self.max_blocks:
                 break
             saturated = True

@@ -13,6 +13,7 @@ import math
 import torch
 
 from ..ops import knn as knn_ops
+from ..utils import tracing
 
 NUM_BINS = 11  # per angle feature -> 33-dim descriptor
 
@@ -55,26 +56,28 @@ def compute_fpfh(
     radius: float = 0.25,
     k: int = 32,
 ) -> torch.Tensor:
-    """(N, 33) FPFH descriptors; invalid points get zeros."""
-    idx, d2, in_r = knn_ops.radius_knn(points, points, valid, k=k, radius=radius)
-    nb_ok = in_r & (d2 > 1e-12) & valid[:, None] & valid[idx]  # no self-pairs
-    w = nb_ok.to(torch.float32)
+    """(N, 33) FPFH descriptors; invalid points get zeros. A span `.fpfh`
+    of the caller's layer."""
+    with tracing.span(".fpfh"):
+        idx, d2, in_r = knn_ops.radius_knn(points, points, valid, k=k, radius=radius)
+        nb_ok = in_r & (d2 > 1e-12) & valid[:, None] & valid[idx]  # no self-pairs
+        w = nb_ok.to(torch.float32)
 
-    alpha, phi, theta = _pair_features(points[:, None, :], normals[:, None, :], points[idx], normals[idx])
-    spfh = torch.cat([
-        _histogram(alpha, -1.0, 1.0, w),
-        _histogram(phi, -1.0, 1.0, w),
-        _histogram(theta, -math.pi, math.pi, w),
-    ], dim=-1)  # (N, 33)
-    spfh = spfh / torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1.0)
+        alpha, phi, theta = _pair_features(points[:, None, :], normals[:, None, :], points[idx], normals[idx])
+        spfh = torch.cat([
+            _histogram(alpha, -1.0, 1.0, w),
+            _histogram(phi, -1.0, 1.0, w),
+            _histogram(theta, -math.pi, math.pi, w),
+        ], dim=-1)  # (N, 33)
+        spfh = spfh / torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1.0)
 
-    # FPFH = SPFH + mean over neighbours of SPFH(neighbour) / distance
-    inv_d = torch.where(nb_ok, 1.0 / torch.sqrt(torch.clamp(d2, min=1e-12)), 0.0)
-    agg = torch.einsum("nkf,nk->nf", spfh[idx], inv_d)
-    ksum = torch.clamp(torch.sum(nb_ok, dim=-1, keepdim=True).to(torch.float32), min=1.0)
-    fpfh = spfh + agg / ksum
-    # each 11-bin block normalised to sum 100
-    blocks = fpfh.reshape(-1, 3, NUM_BINS)
-    s = torch.clamp(torch.sum(blocks, dim=-1, keepdim=True), min=1e-9)
-    fpfh = (blocks / s * 100.0).reshape(-1, 3 * NUM_BINS)
-    return torch.where(valid[:, None], fpfh, 0.0)
+        # FPFH = SPFH + mean over neighbours of SPFH(neighbour) / distance
+        inv_d = torch.where(nb_ok, 1.0 / torch.sqrt(torch.clamp(d2, min=1e-12)), 0.0)
+        agg = torch.einsum("nkf,nk->nf", spfh[idx], inv_d)
+        ksum = torch.clamp(torch.sum(nb_ok, dim=-1, keepdim=True).to(torch.float32), min=1.0)
+        fpfh = spfh + agg / ksum
+        # each 11-bin block normalised to sum 100
+        blocks = fpfh.reshape(-1, 3, NUM_BINS)
+        s = torch.clamp(torch.sum(blocks, dim=-1, keepdim=True), min=1e-9)
+        fpfh = (blocks / s * 100.0).reshape(-1, 3 * NUM_BINS)
+        return torch.where(valid[:, None], fpfh, 0.0)

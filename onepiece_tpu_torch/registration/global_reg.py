@@ -2,7 +2,9 @@
 
 Port of `onepiece_tpu/registration/global_reg.py`: voxel downsample ->
 normals -> FPFH -> 1-NN feature match (33-d, `ops/knn.knn`) -> RanSaPC
-rejection x3 -> rigid RANSAC over all hypotheses at once.
+rejection x3 -> rigid RANSAC over all hypotheses at once. The stages are
+spans of the caller's layer: `.normals` and `.fpfh` in `extract_features`;
+`.match`, `.ransapc` and RANSAC's own in `register`.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 from ..geometry.pointcloud import PointCloud, estimate_normals, voxel_downsample
 from ..ops import knn as knn_ops
 from ..ops import ransac
+from ..utils import tracing
 from . import fpfh as fpfh_mod
 
 MIN_INLIERS = 30  # RANSAC inliers for a successful registration
@@ -68,14 +71,16 @@ def register(
     `PRNGKey(0)`). `samples`, if given, replaces every draw: the anchors of
     each RanSaPC round, then the hypotheses."""
     generator = torch.Generator(device=src.points.device).manual_seed(0)
-    idx = knn_ops.knn(src.fpfh, tgt.fpfh, tgt.valid, k=1)[0][:, 0]
-    ok = src.valid & tgt.valid[idx]
-    dst_pts = tgt.points[idx]
-    for r in range(params.ransapc_rounds):
-        ok = ransac.ransapc_filter(
-            generator, src.points, dst_pts, ok, tolerance=params.voxel_size * 3.0,
-            samples=None if samples is None else samples[r],
-        )
+    with tracing.span(".match"):
+        idx = knn_ops.knn(src.fpfh, tgt.fpfh, tgt.valid, k=1)[0][:, 0]
+        ok = src.valid & tgt.valid[idx]
+        dst_pts = tgt.points[idx]
+    with tracing.span(".ransapc"):
+        for r in range(params.ransapc_rounds):
+            ok = ransac.ransapc_filter(
+                generator, src.points, dst_pts, ok, tolerance=params.voxel_size * 3.0,
+                samples=None if samples is None else samples[r],
+            )
     res = ransac.ransac_rigid(
         generator, src.points, dst_pts, ok,
         threshold=params.threshold, num_hypotheses=params.num_hypotheses,

@@ -7,6 +7,7 @@ pose: weighted Kabsch (point-to-point) or one 6x6 Gauss-Newton step on
 n . (T p - q) (point-to-plane). A fixed number of iterations runs, then one
 more correspondence pass scores the result: `iters + 1` nn1 launches per
 call. A degenerate step keeps the previous pose, decided on the device.
+While a profiler records, each iteration counts under `icp.iter`.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from ..geometry import se3, transforms
 from ..ops import nn1 as nn1_ops
+from ..utils import tracing
 
 DEFAULT_ITERS = 30
 DEFAULT_THRESHOLD = 0.1  # inlier distance (metres)
@@ -55,6 +57,7 @@ def point_to_point(
 ) -> ICPResult:
     T = _initial_pose(init_T, src)
     for _ in range(iters):
+        tracing.count("icp.iter")
         idx, _, ok = _correspond(_apply(T, src), src_valid, tgt, tgt_valid, threshold)
         w = ok.to(torch.float32)
         T_new = transforms.kabsch(src, tgt[idx], w)
@@ -79,6 +82,7 @@ def point_to_plane(
     T = _initial_pose(init_T, src)
     eye6 = torch.eye(6, dtype=torch.float32, device=src.device)
     for _ in range(iters):
+        tracing.count("icp.iter")
         src_t = _apply(T, src)
         idx, _, ok = _correspond(src_t, src_valid, tgt, tgt_valid, threshold)
         q, n = tgt[idx], tgt_normals[idx]

@@ -444,6 +444,60 @@ def test_dense_slam_on_the_card_repeats_bit_for_bit(dev, slam_frames):
             assert torch.equal(getattr(ca, field), getattr(cb, field))
 
 
+def test_dense_slam_counts_each_wait_where_it_waits(dev, slam_frames, monkeypatch):
+    """DenseSlam and its post-hoc reconstruction on the card, the sync debug
+    mode warning: each `sync.<site>` counts exactly the synchronising calls
+    flagged inside its span (a nested site's taken out), and no flagged
+    call lies outside a `sync.*` span, so the program's count is the
+    card's."""
+    import contextlib
+    import warnings
+
+    from onepiece_tpu_torch.systems import dense_slam as ds
+
+    _, grays, depths = slam_frames
+    _dense_slam(dev, grays, depths)  # warm: kernels, allocator, library handles
+    torch.cuda.synchronize()
+    real, sites, stack, covered, outside = tracing.sync, {}, [], [], []
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+
+            def flagged() -> list:
+                return [w for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+
+            @contextlib.contextmanager
+            def sync(site, n=1):
+                stack.append(0)
+                before = len(flagged())
+                if len(stack) == 1:
+                    outside.extend(flagged()[len(covered):])
+                with real(site, n):
+                    yield
+                inside = len(flagged()) - before
+                own = inside - stack.pop()
+                if stack:
+                    stack[-1] += inside
+                else:
+                    covered[:] = flagged()
+                counted, seen = sites.get(site, (0, 0))
+                sites[site] = (counted + n, seen + own)
+
+            monkeypatch.setattr(tracing, "sync", sync)
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                slam = _dense_slam(dev, grays, depths)
+                kept = [(i, depths[i], grays[i][..., None].expand(-1, -1, 3)) for i in range(0, len(grays), 4)]
+                ds.reconstruct(slam.trajectory(), kept, CAM, ds.POSTHOC_VOXEL, dev)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            outside.extend(flagged()[len(covered):])
+    assert {"frame_pose", "submap_compact", "normals_eigh", "icp_result", "global_success", "pose_graph_fetch",
+            "volume_keys"} <= sites.keys(), sites
+    assert not outside, [f"{w.filename}:{w.lineno}" for w in outside]
+    assert all(counted == seen for counted, seen in sites.values()), sites
+
+
 def _mc_pool(dev, sdf, weight, seed=0):
     """A pool of len(sdf) blocks (+ trash row) with the given (P, 512) sdf and
     weights and seeded uniform colour."""

@@ -24,8 +24,8 @@ from onepiece_tpu_torch.geometry.camera import PRESETS, PinholeCamera  # noqa: E
 from onepiece_tpu_torch.integration.blocks import TSDFVolume  # noqa: E402
 from onepiece_tpu_torch.io import trajectory as traj  # noqa: E402
 from onepiece_tpu_torch.io.ply import write_ply_mesh  # noqa: E402
-from onepiece_tpu_torch.ops.image import bilateral_filter  # noqa: E402
 from onepiece_tpu_torch.ops.mesh_dedup import dedup_triangle_soup  # noqa: E402
+from onepiece_tpu_torch.systems.dense_slam import reconstruct  # noqa: E402
 from onepiece_tpu_torch.systems.fused_sparse import KEYFRAME_DISPARITY  # noqa: E402
 from onepiece_tpu_torch.utils import synthetic  # noqa: E402
 
@@ -132,14 +132,16 @@ def add_turntable_arg(ap: argparse.ArgumentParser) -> None:
                     help="directory for a rotating-view PNG sequence + GIF of the final mesh")
 
 
-def write_mesh(vol, path: str, turntable: str = "") -> tuple[int, int, float]:
+def write_mesh(vol, path: str, turntable: str = "", mesh=None) -> tuple[int, int, float]:
     """Mesh the volume (the marching-cubes kernel), merge its vertices on
-    the volume's device, copy the mesh to the host once and write the PLY:
-    (vertices, faces, seconds). With `turntable`, then render the mesh's
-    turntable views on the volume's device into that directory, with a GIF
-    (`tools/torch_render_turntable.py`; not counted in the seconds)."""
+    the volume's device (or take that `mesh`, already made), copy the mesh
+    to the host once and write the PLY: (vertices, faces, seconds). With
+    `turntable`, then render the mesh's turntable views on the volume's
+    device into that directory, with a GIF (`tools/torch_render_turntable.
+    py`; not counted in the seconds)."""
     t = time.perf_counter()
-    mesh = dedup_triangle_soup(*vol.extract_mesh_tensors())
+    if mesh is None:
+        mesh = dedup_triangle_soup(*vol.extract_mesh_tensors())
     verts, faces, cols = (x.cpu().numpy() for x in mesh)
     write_ply_mesh(path, verts, faces, colors=cols)
     secs = time.perf_counter() - t
@@ -159,14 +161,13 @@ def keeping(frames, first: int, stride: int, kept: list):
         yield ts, gray, depth
 
 
-def fuse(poses, kept, cam, voxel: float, device) -> TSDFVolume:
-    """The kept (index, gray, depth) frames fused at their poses, colour = gray."""
-    vol = TSDFVolume(voxel_size=voxel, truncation=voxel * 5, device=device)
-    for f, gray, depth in kept:
-        gray = torch.as_tensor(gray, dtype=torch.float32).to(device)
-        depth = torch.as_tensor(depth, dtype=torch.float32).to(device)
-        vol.integrate(bilateral_filter(depth), gray[..., None].expand(-1, -1, 3), poses[f], cam)
-    return vol
+def fuse(poses, kept, cam, voxel: float, device) -> tuple[TSDFVolume, tuple]:
+    """DenseFusion's post-hoc reconstruction (`dense_slam.reconstruct`) of
+    the kept (index, gray, depth) frames at their poses, colour = gray:
+    (volume, deduplicated mesh)."""
+    frames = ((f, depth, torch.as_tensor(gray, dtype=torch.float32)[..., None].expand(-1, -1, 3))
+              for f, gray, depth in kept)
+    return reconstruct(poses, frames, cam, voxel, device)
 
 
 def add_sparse_args(ap: argparse.ArgumentParser, traj_name: str) -> None:
@@ -208,7 +209,7 @@ def run(slam, frames, args, gt, cam, describe, per_frame: bool = False, finish=N
     traj.write_matrix_trajectory(args.out_traj, poses)
     print_ate(poses, gt)
     if args.out_mesh:
-        vol = fuse(poses, kept, cam, args.voxel, args.device)
-        nv, nf, secs = write_mesh(vol, args.out_mesh)
+        vol, mesh = fuse(poses, kept, cam, args.voxel, args.device)
+        nv, nf, secs = write_mesh(vol, args.out_mesh, mesh=mesh)
         print(f"mesh: {vol.num_active} blocks, {nv} verts {nf} faces in {secs:.2f}s -> {args.out_mesh} "
               f"(key-saturated frames {vol.key_saturated_frames})")

@@ -8,10 +8,11 @@
 
 The counterpart of `tools/dense_fusion.py` for `onepiece_tpu_torch`: reads
 a TUM folder or renders N frames of the synthetic orbit, runs `DenseSlam`
-(dense VO, submap ICP, loop closure, pose graph) over them, then integrates
-every `--integrate-stride`-th frame, bilateral-filtered, into a
+(dense VO, submap ICP, loop closure, pose graph) over them, then runs
+DenseFusion's post-hoc reconstruction (`dense_slam.reconstruct`): every
+`--integrate-stride`-th frame, bilateral-filtered, into a
 `TSDFVolume(voxel, truncation = 5 voxel)` at the optimised poses (the TSDF
-kernel), meshes it (the marching-cubes kernel) and writes the trajectory and
+kernel), meshed (the marching-cubes kernel), and writes the trajectory and
 the PLY. Imports nothing of the JAX package.
 """
 
@@ -56,11 +57,11 @@ def main() -> None:
     traj.write_matrix_trajectory(args.out_traj, poses)
     print_ate(poses, gt)
 
-    # post-hoc reconstruction at the optimised poses
+    # post-hoc reconstruction at the optimised poses (dense_slam.reconstruct)
     t1 = time.perf_counter()
-    vol = fuse(poses, kept, cam, args.voxel, args.device)
-    print(f"integrated {len(kept)} frames in {time.perf_counter() - t1:.2f}s; blocks {vol.num_active}")
-    nv, nf, secs = write_mesh(vol, args.out_mesh, args.turntable)
+    vol, mesh = fuse(poses, kept, cam, args.voxel, args.device)
+    print(f"integrated {len(kept)} frames and meshed in {time.perf_counter() - t1:.2f}s; blocks {vol.num_active}")
+    nv, nf, secs = write_mesh(vol, args.out_mesh, args.turntable, mesh=mesh)
     print(f"mesh: {nv} verts {nf} faces in {secs:.2f}s -> {args.out_mesh}")
 
 
